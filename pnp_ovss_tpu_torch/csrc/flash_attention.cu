@@ -17,7 +17,8 @@
 // bf16. Memory bound, narrowly.
 //
 // Design: one block of 4 warps per (64-query tile, head, batch element);
-// each warp owns 16 query rows. q is scaled in f32 and rounded to bf16
+// each warp owns 16 query rows (the per-warp online softmax is in
+// flash_tile.cuh, shared with K4). q is scaled in f32 and rounded to bf16
 // once, then held in registers as mma fragments. Tiles of 64 keys stream
 // through shared memory (v stored transposed so that its fragments are
 // 32-bit loads). Scores and P.V run on the tensor cores (mma.sync
@@ -27,14 +28,13 @@
 // The tile loop is synchronous; TMA, wgmma and double buffering are the
 // next steps toward the bound.
 
-#include "common.cuh"
+#include "flash_tile.cuh"
 
 namespace {
 
 constexpr int kBQ = 64;
-constexpr int kBK = 64;
 constexpr int kThreads = 128;
-constexpr float kNeg = -1e30f;
+using pnp::flash::kBK;
 
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_flat_kernel(
@@ -53,128 +53,21 @@ __global__ void __launch_bounds__(kThreads) flash_flat_kernel(
   const int h = blockIdx.y;
   const int q0 = blockIdx.x * kBQ + warp * 16;
 
-  const __nv_bfloat16* qb = q + b * q_bs + h * D;
   const __nv_bfloat16* kb = k + b * k_bs + h * D;
   const __nv_bfloat16* vb = v + b * v_bs + h * D;
 
-  // q fragments: scaled in f32, rounded to bf16 once (fragment i covers
-  // row g + 8*(i&1), columns 2t + 8*(i>>1) of each 16-wide k-step).
   uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int s = 0; s < D / 16; ++s) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + g + (i & 1) * 8;
-      const int col = s * 16 + t * 2 + (i >> 1) * 8;
-      uint32_t r = 0;
-      if (row < S) {
-        const float2 f = pnp::unpack_bf16x2(
-            *reinterpret_cast<const uint32_t*>(qb + row * q_rs + col));
-        r = pnp::pack_bf16x2(f.x * scale, f.y * scale);
-      }
-      qa[s][i] = r;
-    }
-  }
-
-  float oacc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
-  float m[2] = {kNeg, kNeg};  // running max of rows g and g+8
-  float l[2] = {0.f, 0.f};    // this thread's share of the running sums
-
+  pnp::flash::load_q<D>(qa, q + b * q_bs + h * D, q_rs, q0, S, scale, g, t);
+  pnp::flash::Softmax<D> sm;
+  sm.init();
   for (int k0 = 0; k0 < L; k0 += kBK) {
     __syncthreads();  // the previous tile is fully consumed
-    for (int c = tid; c < kBK * D / 8; c += kThreads) {
-      const int r = c / (D / 8), col = (c % (D / 8)) * 8;
-      const int key = k0 + r;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (key < L) {
-        kv = *reinterpret_cast<const uint4*>(kb + key * k_rs + col);
-        vv = *reinterpret_cast<const uint4*>(vb + key * v_rs + col);
-      }
-      *reinterpret_cast<uint4*>(&ks[r][col]) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) vt[col + e][r] = ve[e];
-    }
+    pnp::flash::load_kv<D>(ks, vt, kb, k_rs, vb, v_rs, k0, L, tid, kThreads);
     __syncthreads();
-
-    // Scores for this warp's 16 rows x 64 keys.
-    float sacc[kBK / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sacc[j][e] = 0.f;
-#pragma unroll
-    for (int s = 0; s < D / 16; ++s) {
-#pragma unroll
-      for (int j = 0; j < kBK / 8; ++j) {
-        const uint32_t b0 =
-            *reinterpret_cast<const uint32_t*>(&ks[j * 8 + g][s * 16 + t * 2]);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(
-            &ks[j * 8 + g][s * 16 + t * 2 + 8]);
-        pnp::mma_bf16_16816(sacc[j], qa[s], b0, b1);
-      }
-    }
-
-    // Mask keys >= L, then the online-softmax update in f32.
-    float mx[2] = {kNeg, kNeg};
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (k0 + j * 8 + t * 2 + (e & 1) >= L) sacc[j][e] = kNeg;
-        mx[e >> 1] = fmaxf(mx[e >> 1], sacc[j][e]);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      alpha[r] = expf(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int j = 0; j < kBK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(sacc[j][e] - m[e >> 1]);
-        sacc[j][e] = p;
-        l[e >> 1] += p;
-      }
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) oacc[n][e] *= alpha[e >> 1];
-
-    // P (bf16, straight from the score registers) times V.
-#pragma unroll
-    for (int s = 0; s < kBK / 16; ++s) {
-      uint32_t pa[4];
-      pa[0] = pnp::pack_bf16x2(sacc[2 * s][0], sacc[2 * s][1]);
-      pa[1] = pnp::pack_bf16x2(sacc[2 * s][2], sacc[2 * s][3]);
-      pa[2] = pnp::pack_bf16x2(sacc[2 * s + 1][0], sacc[2 * s + 1][1]);
-      pa[3] = pnp::pack_bf16x2(sacc[2 * s + 1][2], sacc[2 * s + 1][3]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const uint32_t b0 =
-            *reinterpret_cast<const uint32_t*>(&vt[n * 8 + g][s * 16 + t * 2]);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(
-            &vt[n * 8 + g][s * 16 + t * 2 + 8]);
-        pnp::mma_bf16_16816(oacc[n], pa, b0, b1);
-      }
-    }
+    sm.tile(qa, ks, vt, k0, L, g, t);
   }
+  sm.finish();
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
   __nv_bfloat16* ob = o + b * o_bs + h * D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -183,7 +76,8 @@ __global__ void __launch_bounds__(kThreads) flash_flat_kernel(
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       *reinterpret_cast<uint32_t*>(ob + row * o_rs + n * 8 + t * 2) =
-          pnp::pack_bf16x2(oacc[n][2 * r] / l[r], oacc[n][2 * r + 1] / l[r]);
+          pnp::pack_bf16x2(sm.o[n][2 * r] / sm.l[r],
+                           sm.o[n][2 * r + 1] / sm.l[r]);
     }
   }
 }

@@ -23,13 +23,16 @@ from pnp_ovss_tpu_torch.models.vit import VisionTransformer
 
 
 class BlipITM(nn.Module):
-    def __init__(self, cfg: ModelConfig, capture_layer: int):
+    def __init__(self, cfg: ModelConfig, capture_layer: int,
+                 vit_fused: bool = True):
         """``capture_layer``: 0-indexed BERT layer whose cross-attention
         probabilities GradCAM reads (the reference's 1-indexed
-        --max_att_block_num minus one)."""
+        --max_att_block_num minus one). ``vit_fused``: the fused ViT
+        block where the config allows it (the JAX package's default);
+        False is its ``PNP_VIT_FUSED=0``."""
         super().__init__()
         self.cfg = cfg
-        self.visual_encoder = VisionTransformer(cfg.vit)
+        self.visual_encoder = VisionTransformer(cfg.vit, fused=vit_fused)
         self.text_encoder = BertFusionEncoder(cfg.bert, capture_layer)
         self.itm_head = nn.Linear(cfg.bert.hidden_size, 2)  # float32
 
@@ -48,13 +51,14 @@ class BlipITM(nn.Module):
 
 
 def init_blip_itm(cfg: ModelConfig, *, capture_layer: int, seed: int = 0,
-                  device="cuda") -> BlipITM:
+                  device="cuda", vit_fused: bool = True) -> BlipITM:
     """Random weights drawn from a ``torch.Generator`` seeded with ``seed``
     on ``device`` (benchmarks and smoke runs without a checkpoint):
-    matrices N(0, 1/fan_in), embeddings N(0, 0.02^2), biases 0, norms 1."""
+    matrices N(0, 1/fan_in), embeddings N(0, 0.02^2), biases 0, norms 1.
+    Both ViT blocks draw the same weights from the same seed."""
     dev = resolve_device(device)
     with torch.device(dev):
-        model = BlipITM(cfg, capture_layer)
+        model = BlipITM(cfg, capture_layer, vit_fused=vit_fused)
     gen = torch.Generator(device=dev).manual_seed(seed)
     with torch.no_grad():
         for mod in model.modules():

@@ -49,9 +49,11 @@ def _flatten(tree, prefix: str, out: Dict[str, np.ndarray]) -> None:
 
 
 def from_jax_params(tree, cfg: ModelConfig, *, capture_layer: int,
-                    device="cuda") -> BlipITM:
+                    device="cuda", vit_fused: bool = True) -> BlipITM:
     """``tree``: the JAX package's params (``{"params": {...}}`` or the
-    inner dict) with numpy (or array-like) leaves."""
+    inner dict) with numpy (or array-like) leaves. The fused and unfused
+    ViT blocks share one parameter tree, as in the JAX package;
+    ``vit_fused`` picks the block (``BlipITM``)."""
     p = tree["params"] if "params" in tree else tree
     ve = dict(p["visual_encoder"])
     stacked = ve.pop("blocks")["block"]
@@ -75,7 +77,7 @@ def from_jax_params(tree, cfg: ModelConfig, *, capture_layer: int,
         _flatten(layer, f"text_encoder.layers.{i}.", flat)
     _flatten({"itm_head": p["itm_head"]}, "", flat)
 
-    model = BlipITM(cfg, capture_layer)
+    model = BlipITM(cfg, capture_layer, vit_fused=vit_fused)
     model.load_state_dict({k: torch.tensor(v) for k, v in flat.items()},
                           strict=True)
     return model.to(resolve_device(device)).requires_grad_(False).eval()

@@ -41,13 +41,25 @@ SOURCES: Dict[str, Dict[str, list]] = {
     "crf_iteration": {
         "crf_fused_iteration": [_P, _P, _P, _P, _P, _P] + [_I] * 5 + [_P],
     },
+    "ln_matmul": {
+        "ln_matmul_bf16": [_P] * 6 + [_I] * 3 + [_F, _P],
+    },
+    "ln_mlp_residual": {
+        "ln_mlp_residual_bf16": [_P] * 8 + [_I] * 3 + [_F, _P],
+    },
+    "flash_qkv_proj": {
+        "flash_mha_qkv_proj_bf16": [_P] * 5 + [_I] * 6 + [_F, _P],
+    },
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES: Dict[str, int] = {
+    "ln_matmul": 0,
     "flash_mha_flat_qkv": 0,
+    "ln_mlp_residual": 0,
+    "flash_mha_qkv_proj": 0,
     "gaussian_kernel_materialize": 0,
     "crf_fused_iteration": 0,
 }
@@ -144,3 +156,10 @@ def require_cuda(name: str, **tensors: torch.Tensor) -> None:
     for k, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{name}: {k} must be contiguous")
+
+
+def require_bf16(name: str, **tensors: torch.Tensor) -> None:
+    """Check that every tensor is bfloat16 (what the kernels read)."""
+    for k, t in tensors.items():
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: {k} must be bfloat16, got {t.dtype}")

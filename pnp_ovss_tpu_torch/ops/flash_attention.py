@@ -1,7 +1,8 @@
-"""Flat-layout flash attention (kernel K2, ``csrc/flash_attention.cu``).
+"""Flat-layout flash attention: kernel K2 (``csrc/flash_attention.cu``) and
+K4, attention + output projection + residual (``csrc/flash_qkv_proj.cu``).
 
-Counterpart of ``pnp_ovss_tpu/ops/flash_attention.py``'s ``flash_mha_flat_qkv``
-and ``flash_mha_flat``. q/k/v stay in the qkv projection's own layout:
+Counterpart of ``pnp_ovss_tpu/ops/flash_attention.py``'s ``flash_mha_flat_qkv``,
+``flash_mha_flat`` and ``flash_mha_qkv_proj``. q/k/v stay in the qkv projection's own layout:
 ``[B, S, H*D]`` column views with heads as column slices, so no head
 transposes happen around the kernel. Forward only: the GradCAM tap sits in
 the BERT cross-attention, so no gradient ever reaches the ViT.
@@ -111,3 +112,76 @@ def flash_mha_flat_qkv(qkv3: torch.Tensor, *, num_heads: int,
     return flash_mha_flat(qkv3[..., :hd], qkv3[..., hd:2 * hd],
                           qkv3[..., 2 * hd:], num_heads=num_heads,
                           out_dtype=out_dtype, true_len=true_len)
+
+
+_KEY_BLOCK = 512  # the reference's widest k-block (``_FLAT_BLOCK_K``)
+
+
+def proj_fold_enabled(true_len: int) -> bool:
+    """Whether the fused ViT block folds attention, proj and the residual
+    into K4. This is the reference's routing (its auto rule): on iff the
+    true length needs more than one 512-key block of its k-schedule
+    (``seq_blocks`` rounds the length up to 16 and splits it into blocks
+    of at most 512), i.e. iff ``true_len > 512`` -- the 768 px leg (2305
+    tokens), not 336 px (442)."""
+    return true_len > _KEY_BLOCK
+
+
+def qkv_proj_plain(qkv3: torch.Tensor, x: torch.Tensor, proj_w: torch.Tensor,
+                   proj_b: torch.Tensor, *, num_heads: int,
+                   true_len: int) -> torch.Tensor:
+    """Plain version of K4: each head's output rounded to x's dtype, the
+    full H*D proj contraction in f32 rounded once, then
+    ``x + (acc + proj_b)`` in x's dtype."""
+    dt = x.dtype
+    hd = qkv3.shape[-1] // 3
+    out = attention_plain(qkv3[..., :hd], qkv3[..., hd:2 * hd],
+                          qkv3[..., 2 * hd:], num_heads=num_heads,
+                          true_len=true_len, out_dtype=dt)
+    acc = (out.float() @ proj_w.float().T).to(dt)
+    y = (acc.float() + proj_b.to(dt).float()).to(dt)
+    return (x.float() + y.float()).to(dt)
+
+
+def flash_mha_qkv_proj(qkv3: torch.Tensor, x: torch.Tensor,
+                       proj_w: torch.Tensor, proj_b: torch.Tensor, *,
+                       num_heads: int,
+                       true_len: Optional[int] = None) -> torch.Tensor:
+    """x + attention(qkv) @ proj_w^T + proj_b in one kernel.
+
+    ``qkv3`` [B, S, 3*H*D] ([q | k | v] on the channel axis), ``x``
+    [B, S, Dm] the residual stream, ``proj_w`` [Dm, H*D] (``nn.Linear``
+    layout), ``proj_b`` [Dm]. Keys at or beyond ``true_len`` are masked.
+    Returns [B, S, Dm] in x's dtype: the attention output never reaches
+    device memory on the card."""
+    b, s, hd3 = qkv3.shape
+    hd = hd3 // 3
+    tl = s if true_len is None else true_len
+    if not 0 < tl <= s:
+        raise ValueError(f"true_len {tl} outside (0, {s}]")
+    if qkv3.device.type == "cpu":
+        return qkv_proj_plain(qkv3, x, proj_w, proj_b, num_heads=num_heads,
+                              true_len=tl)
+    dm = x.shape[-1]
+    d = hd // num_heads
+    tensors = dict(qkv3=qkv3, x=x, proj_w=proj_w, proj_b=proj_b)
+    _build.require_cuda("flash_mha_qkv_proj", **tensors)
+    _build.require_bf16("flash_mha_qkv_proj", **tensors)
+    if (x.shape != (b, s, dm) or proj_w.shape != (dm, hd)
+            or proj_b.shape != (dm,)):
+        raise ValueError("flash_mha_qkv_proj: x / proj shapes do not match "
+                         f"qkv {tuple(qkv3.shape)}")
+    if (d not in (64, 128) or hd != num_heads * d or num_heads % 2
+            or hd > 1024 or dm % 128):
+        raise ValueError(f"flash_mha_qkv_proj: needs head dim 64 or 128, an"
+                         f" even head count, H*D <= 1024 and Dm % 128 == 0; "
+                         f"got H={num_heads}, D={d}, Dm={dm}")
+    out = torch.empty_like(x)
+    lib = _build.library("flash_qkv_proj")
+    rc = lib.flash_mha_qkv_proj_bf16(
+        qkv3.data_ptr(), x.data_ptr(), proj_w.data_ptr(), proj_b.data_ptr(),
+        out.data_ptr(), b, s, tl, num_heads, d, dm, 1.0 / d**0.5,
+        _build.stream_ptr(x))
+    _build.check(lib, rc, "flash_mha_qkv_proj")
+    _build.LAUNCHES["flash_mha_qkv_proj"] += 1
+    return out

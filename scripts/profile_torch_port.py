@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
 """Where the device time of the PyTorch/CUDA port goes, on one GPU.
 
-    python3 scripts/profile_torch_port.py [--batches 2] [--out DIR]
+    python3 scripts/profile_torch_port.py [--run "336 px fused"]
+        [--batches 2] [--out DIR]
 
-Runs the reference-default pipeline of ``pnp_ovss_tpu_torch`` as
-chip_smoke.py phase 5 builds it (``chip_smoke.pipeline_setup``:
-BLIP-ITM-Large with seeded random weights, 336 px, batch 35, 4 drop rounds,
-bucket 192, blur + 10-iteration CRF) once to warm up, then ``--batches``
-double-buffered batches without and then with ``torch.profiler`` tracing
-the device's kernels only (no host-side op recording, which slows the
-host's dispatch). Prints the card, the wall time per batch of both
+Runs one of chip_smoke.py's phase-5 pipelines of ``pnp_ovss_tpu_torch``
+as it builds them (``chip_smoke.pipeline_setup``: BLIP-ITM-Large with
+seeded random weights, 4 drop rounds, bucket 192, blur + 10-iteration
+CRF; by default the reference default, 336 px, batch 35, fused ViT; also
+"768 px fused", batch 12, and "336 px unfused") once to warm up, then
+``--batches`` double-buffered batches without and then with
+``torch.profiler`` tracing the device's kernels only (no host-side op
+recording, which slows the host's dispatch). Prints the card, the wall time per batch of both
 windows, the device's busy time (the union of kernel intervals) and idle
 share of the traced window, the tracing's cost in wall time, and the
 kernels that take the most device time. The full table is written to
-``DIR/profile_torch_port.txt``.
+``DIR/profile_torch_port_<run>.txt``.
 """
 
 from __future__ import annotations
@@ -45,6 +47,8 @@ def busy_us(events) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--run", default="336 px fused",
+                    help="a run of chip_smoke.FULL_RUNS, by name")
     ap.add_argument("--batches", type=int, default=2)
     ap.add_argument("--out", default="build/profile")
     args = ap.parse_args()
@@ -59,8 +63,14 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    runs = {r[0]: r for r in chip_smoke.FULL_RUNS}
+    if args.run not in runs:
+        raise SystemExit(f"profile_torch_port: --run must be one of "
+                         f"{sorted(runs)}")
+    _, size, fused, _ = runs[args.run]
     card = chip_smoke.card_line()
-    cfg, runner, inputs = chip_smoke.pipeline_setup()
+    cfg, runner, inputs = chip_smoke.pipeline_setup(image_size=size,
+                                                    vit_fused=fused)
     images, cap, rgb, gt = inputs
     runner.run_batch(images, cap, rgb, gt_sizes=gt)
     torch.cuda.synchronize()
@@ -78,7 +88,9 @@ def main() -> int:
         by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
     total_dev = sum(us for _, us in by_name.values()) or 1.0
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "profile_torch_port.txt"), "w") as f:
+    slug = args.run.replace(" ", "_")
+    with open(os.path.join(args.out, f"profile_torch_port_{slug}.txt"),
+              "w") as f:
         f.write(card + "\n")
         f.write(prof.key_averages().table(
             sort_by="self_device_time_total", row_limit=60))
@@ -88,7 +100,8 @@ def main() -> int:
     # Busy and wall time of the one traced window; the untraced window
     # says what the tracing cost.
     print(json.dumps({
-        "batches": args.batches, "batch_size": cfg.batch_size,
+        "run": args.run, "batches": args.batches,
+        "batch_size": cfg.batch_size,
         "wall_s_per_batch": wall_plain / args.batches,
         "img_per_s": cfg.batch_size * args.batches / wall_plain,
         "traced_wall_s_per_batch": wall / args.batches,

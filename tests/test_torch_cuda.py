@@ -8,7 +8,9 @@ so it runs where JAX is not installed:
 
 It covers the shapes and code paths ``chip_smoke.py`` does not reach at
 the main path's shapes: head dim 128, ragged sequence and pixel counts,
-row-padded anchors, one variant and fewer than 64 state rows.
+row-padded anchors, one variant and fewer than 64 state rows; for the
+fused ViT kernels (K1, K3, K4) row counts that are no multiple of the
+row tile, narrow widths, masked keys and several key tiles.
 """
 
 import numpy as np
@@ -16,7 +18,9 @@ import pytest
 import torch
 
 from pnp_ovss_tpu_torch.config import CRFConfig
-from pnp_ovss_tpu_torch.ops import _build, bilateral, crf, flash_attention
+from pnp_ovss_tpu_torch.ops import (
+    _build, bilateral, crf, flash_attention, vit_block,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -137,3 +141,88 @@ def test_crf_on_card_matches_cpu(cuda):
             CRFConfig(), xy_scale=(0.4, 0.5)).cpu()
     agree = (labels["cpu"] == labels["cuda"]).float().mean().item()
     assert agree > 0.99, agree
+
+
+def _norm_params(gen, d):
+    g = 1 + 0.1 * _randn(gen, d)
+    return g, 0.1 * _randn(gen, d)
+
+
+# The fused ViT kernels round to bf16 where their plain versions do, but
+# sum in another order, so a value may land one rounding step away (plus
+# a second rounding for the residual): 1e-2 relative and absolute on
+# outputs of O(1).
+BF16_TOL = dict(rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("m,d,n", [(300, 128, 384), (77, 256, 128),
+                                   (1001, 1024, 3072)])
+def test_ln_matmul_kernel_matches_plain(cuda, m, d, n):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = _randn(gen, m, d).to(torch.bfloat16)
+    g, b = _norm_params(gen, d)
+    w = (_randn(gen, n, d) / d**0.5).to(torch.bfloat16)
+    bias = (0.1 * _randn(gen, n)).to(torch.bfloat16)
+    before = _build.LAUNCHES["ln_matmul"]
+    out = vit_block.ln_matmul(x, g, b, w, bias)
+    assert _build.LAUNCHES["ln_matmul"] == before + 1
+    ref = vit_block.ln_matmul_plain(x, g, b, w, bias, eps=1e-6)
+    torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+
+
+@pytest.mark.parametrize("m,d,f", [(77, 128, 512), (300, 256, 1024),
+                                   (1001, 1024, 4096)])
+def test_ln_mlp_residual_kernel_matches_plain(cuda, m, d, f):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    x = _randn(gen, m, d).to(torch.bfloat16)
+    g, b = _norm_params(gen, d)
+    w1 = (_randn(gen, f, d) / d**0.5).to(torch.bfloat16)
+    b1 = (0.1 * _randn(gen, f)).to(torch.bfloat16)
+    w2 = (_randn(gen, d, f) / f**0.5).to(torch.bfloat16)
+    b2 = (0.1 * _randn(gen, d)).to(torch.bfloat16)
+    before = _build.LAUNCHES["ln_mlp_residual"]
+    out = vit_block.ln_mlp_residual(x, g, b, w1, b1, w2, b2)
+    assert _build.LAUNCHES["ln_mlp_residual"] == before + 1
+    ref = vit_block.ln_mlp_residual_plain(x, g, b, w1, b1, w2, b2, eps=1e-6)
+    torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+
+
+def test_gelu_kernel_matches_plain_on_every_code(cuda):
+    """The plain gelu that K3 is checked against computes on the card
+    what it computes on the CPU (where the tests hold it to JAX), bit for
+    bit on every finite bf16 code."""
+    codes = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16)
+    y = codes.view(torch.bfloat16)
+    y = y[torch.isfinite(y)]
+    torch.testing.assert_close(vit_block.gelu_exact(y.to(cuda)).cpu(),
+                               vit_block.gelu_exact(y), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("b,s,h,d,dm,true_len", [
+    (2, 300, 4, 64, 256, 260), (1, 577, 2, 64, 128, None),
+    (2, 200, 2, 128, 256, 171), (1, 130, 16, 64, 1024, None)])
+def test_qkv_proj_kernel_matches_plain(cuda, b, s, h, d, dm, true_len):
+    """Several 64-key tiles, keys >= true_len masked, head dim 128 and
+    the 16 heads of ViT-L; rows >= true_len are garbage by contract."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    qkv = _randn(gen, b, s, 3 * h * d).to(torch.bfloat16)
+    x = _randn(gen, b, s, dm).to(torch.bfloat16)
+    pw = (_randn(gen, dm, h * d) / (h * d)**0.5).to(torch.bfloat16)
+    pb = (0.1 * _randn(gen, dm)).to(torch.bfloat16)
+    before = _build.LAUNCHES["flash_mha_qkv_proj"]
+    out = flash_attention.flash_mha_qkv_proj(qkv, x, pw, pb, num_heads=h,
+                                             true_len=true_len)
+    assert _build.LAUNCHES["flash_mha_qkv_proj"] == before + 1
+    tl = true_len or s
+    ref = flash_attention.qkv_proj_plain(qkv, x, pw, pb, num_heads=h,
+                                         true_len=tl)
+    torch.testing.assert_close(out[:, :tl].float(), ref[:, :tl].float(),
+                               **BF16_TOL)
+
+
+def test_fused_kernels_refuse_f32(cuda):
+    x = torch.zeros(64, 128, device=cuda)
+    g = torch.ones(128, device=cuda)
+    with pytest.raises(TypeError):
+        vit_block.ln_matmul(x, g, g, torch.zeros(128, 128, device=cuda),
+                            torch.zeros(128, device=cuda))

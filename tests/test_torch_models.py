@@ -3,7 +3,8 @@
 ``from_jax_params`` loads the JAX package's Flax tree into the port; both
 then see the same numpy inputs from a seed. The JAX side runs the unfused
 ViT block (``PNP_VIT_FUSED=0``, the configuration this port covers) with
-its Pallas kernels in interpret mode. Two configurations: the tiny one
+its Pallas kernels in interpret mode, and the port its counterpart
+(``vit_fused=False``). Two configurations: the tiny one
 (head dim 16: plain attention on both sides) and a narrow one that reaches
 the flat flash kernel (hidden 128, 2 heads of 64, 192 px -> 145 tokens).
 """
@@ -63,7 +64,8 @@ def pair(request):
     params = init_params(jax.random.PRNGKey(0), jcfg, capture_layers=(layer,))
     jmodel = JaxBlipITM(jcfg, capture_layers=(layer,), attn_impl="pallas")
     pmodel = from_jax_params(jax.tree.map(np.asarray, params), pcfg,
-                             capture_layer=layer, device="cpu")
+                             capture_layer=layer, device="cpu",
+                             vit_fused=False)
     rng = np.random.RandomState(0)
     images = rng.randn(2, jcfg.vit.image_size, jcfg.vit.image_size, 3) \
         .astype(np.float32)

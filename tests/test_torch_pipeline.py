@@ -4,7 +4,8 @@ Same weights (``from_jax_params``), uint8 images, captions, bucket RGB and
 GT sizes go through the port's ``SegmentationRunner`` on the CPU (plain
 versions of every kernel) and the JAX package's runner with its Pallas
 kernels in interpret mode (``attn_impl="pallas"``,
-``bilateral_impl="pallas"``, unfused ViT block via ``PNP_VIT_FUSED=0``).
+``bilateral_impl="pallas"``, unfused ViT block via ``PNP_VIT_FUSED=0``;
+the port's ``vit_fused=False``).
 The postprocess is the default blur + strided s=4 CRF at bucket 32. The
 bars are tests/test_golden.py's: map sums within rtol 1e-3 and more than
 99.5% of labels equal (top-k and threshold ties may flip a few).
@@ -57,7 +58,7 @@ def results():
                      bilateral_impl="pallas")
     want = jrun.run_batch(images, cap, rgb, return_maps=True, gt_sizes=gt)
     model = from_jax_params(jax.tree.map(np.asarray, params), pcfg.model,
-                            capture_layer=0, device="cpu")
+                            capture_layer=0, device="cpu", vit_fused=False)
     prun = SegmentationRunner(pcfg, model, device="cpu", bucket_size=BUCKET)
     got = prun.run_batch(images, cap, rgb, return_maps=True, gt_sizes=gt)
     yield jrun, prun, want, got
