@@ -14,16 +14,24 @@ Phases, each of which exits non-zero on failure:
    PyTorch call computes the same function that call (attention:
    ``F.scaled_dot_product_attention``), and for the fused ViT kernels
    the port's unfused route (LayerNorm, cuBLAS products, ``F.gelu``,
-   K2), which the fused path never calls;
-4. reference: narrow configurations of the whole pipeline on the card
-   against the same weights and inputs on the CPU (plain versions): the
-   fused ViT at 192 px (K1, K2, K3) and 384 px (K1, K4, K3), and the
-   unfused ViT at 192 px;
-5. pipeline: three full-width runs of ``SegmentationRunner`` with random
+   K2), which the fused path never calls; K8 at the exact CRF's shape
+   and at both Nystrom shapes;
+4. reference: each branch of the CRF alone on the card against the CPU
+   on one seeded scene (strided s=4 through K5 + K6, the general loop on
+   K5's kernel for 66 state rows and for N = 1600, exact through K8,
+   Nystrom through K5 + K8); then narrow configurations of the whole
+   pipeline on the card against the same weights and inputs on the CPU
+   (plain versions): the fused ViT at 192 px (K1, K2, K3) and 384 px (K1,
+   K4, K3), and the unfused ViT at 192 px, each with the strided s=4 CRF
+   (K5, K6); then the fused ViT at 192 px with the exact CRF (K8), with
+   the Nystrom CRF at s=4 (K5, K8) and with 32 classes, whose 66 state
+   rows take the general loop (K5);
+5. pipeline: four full-width runs of ``SegmentationRunner`` with random
    weights from a seeded ``torch.Generator`` (BLIP-ITM-Large, 4 drop
    rounds, bucket 192, blur + 10-iteration CRF): the reference default
-   (336 px, batch 35, fused ViT), bench.py's second leg (768 px, batch
-   12, fused ViT through K4) and the unfused ViT at 336 px. Each checks
+   (336 px, batch 35, fused ViT, strided s=4 CRF), bench.py's second leg
+   (768 px, batch 12, fused ViT through K4), the unfused ViT at 336 px,
+   and the reference default with the exact CRF (s=1, K8). Each checks
    the launch count of every kernel over its timed batches, labels in
    range and maps finite, and reports img/s.
 
@@ -74,8 +82,13 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, ops: float, peak_ops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak_ops
+def bound_ms(nbytes: float, ops: float, peak_ops: float, *more):
+    """The least time for ``nbytes`` of memory traffic and ``ops``
+    operations at ``peak_ops``; ``more`` holds (operations, peak) pairs
+    that run on other units at the same time, and the slowest unit sets
+    the operations' time."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max([ops / peak_ops] + [o / p for o, p in more])
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
         "operations"
 
@@ -250,6 +263,110 @@ def kernels_vs_plain(cfg):
               f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} by "
               f"{row['bound_by']}, library {row['library_ms']})", flush=True)
     return rows
+
+
+# K8's shapes: (label, i-side, j-side, channels, signed values), with the
+# tolerance on max |K8 - plain| / max |plain|, about 2x the seeded H100
+# reading beside it (the starting bar was 5e-3). Both round k to bf16, so
+# a k code may flip where the exponent's rounding differs (K8 scales the
+# features for ex2 and sums the differences in another order).
+K8_SHAPES = (
+    ("exact C=58", "pixels", "pixels", 58, False, 7e-4),  # 3.35e-4
+    ("exact degree C=1", "pixels", "pixels", 1, False, 2e-4),  # 8.62e-5
+    ("nystrom K_AN C=58", "anchors", "pixels", 58, False, 5e-4),  # 2.18e-4
+    ("nystrom K_NA C=58 signed", "pixels", "anchors", 58, True,
+     4e-5),  # 1.95e-5
+)
+K8_CHECK_ROWS = 4096  # the plain version at N x N takes seconds
+
+
+def photo_like_rgb(h: int, w: int, gen):
+    """A smooth textured image with noise (tests' CRF scene), so that many
+    bilateral pairs interact and not only each pixel with itself."""
+    import torch
+
+    yy, xx = torch.meshgrid(
+        torch.arange(h, dtype=torch.float32, device=gen.device),
+        torch.arange(w, dtype=torch.float32, device=gen.device),
+        indexing="ij")
+    img = torch.stack([120 + 60 * torch.sin(xx / 9) + 40 * yy / h,
+                       100 + 50 * torch.cos(yy / 7) + 30 * xx / w,
+                       90 + 45 * torch.sin((xx + yy) / 11)], -1)
+    noise = torch.randn((h, w, 3), generator=gen, device=gen.device)
+    return (img + 12 * noise).clamp(0, 255)
+
+
+def kernel_matmul_check(cfg):
+    """Phase 3 for K8 at the shapes of the exact CRF (N = M = 36864
+    pixels of the 192 bucket: the message with C = 58 channels of two
+    variants and the degree with C = 1) and of the Nystrom CRF at s = 4
+    (2304 anchors against the pixels and back, with signed values), the
+    features scaled as the runner scales them for a 500x375 GT. K8 rows
+    are independent, so the plain version runs on the first
+    ``K8_CHECK_ROWS`` i-rows against all j. Returns the row of the kernels
+    line, at the exact CRF's message shape."""
+    import torch
+
+    from pnp_ovss_tpu_torch.ops import bilateral
+    from pnp_ovss_tpu_torch.ops.crf import bilateral_features
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    hb, sub = BUCKET, 4
+    crf_cfg = cfg.postprocess.crf
+    gt_h, gt_w = GT_SIZES[0]
+    scale = torch.tensor([hb / gt_w, hb / gt_h], device=dev)
+    feats = bilateral_features(photo_like_rgb(hb, hb, gen),
+                               crf_cfg.bi_xy_std * scale, crf_cfg.bi_rgb_std)
+    support = {"pixels": feats,
+               "anchors": feats.reshape(hb, hb, 5)[::sub, ::sub]
+               .reshape(-1, 5).contiguous()}
+    lines = []
+    for label, side_i, side_j, c, signed, tol in K8_SHAPES:
+        fi, fj = support[side_i], support[side_j]
+        m = fj.shape[0]
+        if c == 1:
+            vals = torch.ones((m, 1), device=dev)
+        elif signed:
+            vals = torch.randn((m, c), generator=gen, device=dev)
+        else:  # two variants' probabilities, as the state is
+            vals = torch.softmax(torch.randn((m, 2, c // 2), generator=gen,
+                                             device=dev), -1).reshape(m, c)
+        fj_arg = None if side_i == side_j else fj
+        out = bilateral.gaussian_kernel_matmul(fi, vals, fj_arg)
+        rows = min(K8_CHECK_ROWS, fi.shape[0])
+        ref = bilateral.kernel_matmul_plain(fi[:rows], vals, fj)
+        top = ref.abs().max().item()
+        rel = (out[:rows] - ref).abs().max().item() / top
+        print(f"  gaussian_kernel_matmul {label} N={fi.shape[0]} M={m}: "
+              f"first {rows} rows, |ref| max {top:.4g}", flush=True)
+        check(f"gaussian_kernel_matmul {label} max|K8-plain|/max|plain|",
+              rel, tol)
+        del out, ref
+        torch.cuda.synchronize()
+        n = fi.shape[0]
+        nbytes = (n + m) * 5 * 4 + m * c * 4 + n * c * 4
+        bms, by = bound_ms(nbytes, 17.0 * n * m, F32_FLOPS,
+                           (2.0 * n * m * c, BF16_FLOPS))
+        lines.append(dict(
+            name="gaussian_kernel_matmul", route="cuda",
+            source="pnp_ovss_tpu_torch/csrc/crf_matmul.cu",
+            replaces="pnp_ovss_tpu/ops/bilateral_pallas.py:104",
+            max_abs_err=rel * top, rel_err=rel, tolerance_rel=tol,
+            ms=time_ms(lambda: bilateral.gaussian_kernel_matmul(
+                fi, vals, fj_arg), 10),
+            plain_ms=time_ms(lambda: bilateral.kernel_matmul_plain(
+                fi, vals, fj), 1, warmup=1),
+            bound_ms=bms, bound_by=by, library_ms=None,
+            shape=f"{label} N={n} M={m}"))
+    for row in lines:
+        print(f"  gaussian_kernel_matmul {row['shape']}: {row['ms']:.4f} ms "
+              f"(plain {row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} by "
+              f"{row['bound_by']}, library None)", flush=True)
+    row = dict(lines[0])
+    row["shapes"] = [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                        "max_abs_err")} for r in lines]
+    return row
 
 
 def bf16_ulp(x: float) -> float:
@@ -447,30 +564,109 @@ def narrow_config(image_size: int):
         attribution=dataclasses.replace(cfg.attribution, layer=1, head=1))
 
 
-# Phase 4's narrow runs: (image size, fused ViT, kernels the card run must
-# launch; every other kernel must stay at 0), and the bars on the
-# card-vs-CPU differences (max relative difference of the round-0 map
-# sums, least share of equal labels), each about 1.5x the difference of
-# the seeded H100 reading noted beside it. A flipped drop decision in the
-# GradCAM rounds changes every later map, so labels differ more than the
-# round-0 sums do.
-NARROW_RUNS = (
-    # seeded readings: 0.0255, 0.9749 (r0), 0.9897 (agg)
-    (192, True, ("ln_matmul", "flash_mha_flat_qkv", "ln_mlp_residual",
-                 "gaussian_kernel_materialize", "crf_fused_iteration"),
-     0.04, 0.96),
-    # seeded readings: 0.0161, 0.9882 (r0), 0.9553 (agg)
-    (384, True, ("ln_matmul", "flash_mha_qkv_proj", "ln_mlp_residual",
-                 "gaussian_kernel_materialize", "crf_fused_iteration"),
-     0.025, 0.93),
-    # seeded readings: 0.0201, 0.9833 (r0), 0.9848 (agg)
-    (192, False, ("flash_mha_flat_qkv", "gaussian_kernel_materialize",
-                  "crf_fused_iteration"), 0.03, 0.975),
+_VIT_336 = ("ln_matmul", "flash_mha_flat_qkv", "ln_mlp_residual")
+_K5, _K8 = "gaussian_kernel_materialize", "gaussian_kernel_matmul"
+_CRF_S4 = (_K5, "crf_fused_iteration")
+
+# Phase 4's CRF branches alone: (label, scene size, channels per variant,
+# CRF settings, kernels the card launches; every other kernel stays at 0,
+# least share of labels equal to the CPU's), two variants, 10 iterations.
+# The CPU runs the plain versions with f32 products where the card's
+# products are bf16. Each bar leaves about 1.5x the disagreement of the
+# seeded H100 reading beside it, and 0.1% (a few pixels) where the
+# reading is 1.
+CRF_BRANCHES = (
+    ("strided s=4 fused", 64, 4, {}, _CRF_S4, 0.9994),  # 0.99963
+    ("general loop, v*c = 66", 64, 33, {}, (_K5,), 0.999),  # 0.99939
+    ("general loop, N = 1600", 40, 4, {}, (_K5,), 0.999),  # 1.0
+    ("exact s=1", 64, 4, dict(bilateral_subsample=1), (_K8,), 0.999),  # 1.0
+    ("nystrom s=4", 64, 4,  # 1.0
+     dict(bilateral_subsample=4, bilateral_mode="nystrom"), (_K5, _K8),
+     0.999),
 )
 
 
-def reference_check(image_size: int, vit_fused: bool, kernels, max_rel,
-                    min_agree):
+def launched_exactly(name: str, kernels) -> dict:
+    """The launch counts since the last reset; fails unless exactly the
+    kernels named were launched."""
+    from pnp_ovss_tpu_torch.ops import _build
+
+    counts = dict(_build.LAUNCHES)
+    if any((n > 0) != (k in kernels) for k, n in counts.items()):
+        raise SystemExit(f"FAIL: {name} launched {counts}, want exactly "
+                         f"{kernels}")
+    return counts
+
+
+def crf_branch_check(label: str, size: int, c: int, post: dict, kernels,
+                     min_agree: float) -> None:
+    """Phase 4: one branch of ``mean_field_crf_variants`` on the card
+    against the CPU, on a textured scene with noisy logits that favour one
+    class per half and a third in a blob (the tests' CRF scene)."""
+    import numpy as np
+    import torch
+
+    from pnp_ovss_tpu_torch.config import CRFConfig
+    from pnp_ovss_tpu_torch.ops import _build
+    from pnp_ovss_tpu_torch.ops.crf import mean_field_crf_variants
+
+    rng = np.random.RandomState(size + c)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    image = photo_like_rgb(size, size, torch.Generator().manual_seed(c))
+    logits = rng.randn(2, c, size, size).astype(np.float32) * 0.5
+    logits[:, 0, :size // 2] += 0.8
+    logits[:, 1, size // 2:] += 0.8
+    logits[:, 2][:, (yy - 0.6 * size) ** 2 + (xx - 0.7 * size) ** 2
+                 < (size / 4) ** 2] += 1.2
+    labels = {}
+    for dev in ("cuda", "cpu"):
+        _build.reset_launch_counts()
+        labels[dev] = mean_field_crf_variants(
+            torch.from_numpy(logits).to(dev), image.to(dev), CRFConfig(),
+            xy_scale=(0.4, 0.5), **post).cpu()
+        if dev == "cuda":
+            counts = launched_exactly(f"CRF {label}", kernels)
+    agree = (labels["cuda"] == labels["cpu"]).float().mean().item()
+    print(f"  CRF {label} ({size}x{size}, 2x{c} channels) card vs CPU: "
+          f"labels equal {agree:.5f} (bar {min_agree:g}); card launches "
+          f"{ {k: n for k, n in counts.items() if n} }", flush=True)
+    if agree < min_agree or len(labels["cuda"].unique()) < 2:
+        raise SystemExit(f"FAIL: CRF {label} disagrees with the CPU run")
+
+
+# Phase 4's narrow runs: (image size, fused ViT, settings beside the
+# narrow config's (``postprocess`` beside the default strided s=4 CRF),
+# kernels the card run must launch; every other kernel must stay at 0),
+# and the bars on the card-vs-CPU differences (max relative difference of
+# the round-0 map sums, least share of equal labels), each about 1.5x the
+# difference of the seeded H100 reading noted beside it. A flipped drop
+# decision in the GradCAM rounds changes every later map, so labels differ
+# more than the round-0 sums do, and these bars cannot see a CRF fault
+# that flips a few labels: the CRF branches above are held alone.
+NARROW_RUNS = (
+    # seeded readings: 0.0255, 0.9749 (r0), 0.9897 (agg)
+    (192, True, {}, _VIT_336 + _CRF_S4, 0.04, 0.96),
+    # seeded readings: 0.0161, 0.9882 (r0), 0.9553 (agg)
+    (384, True, {}, ("ln_matmul", "flash_mha_qkv_proj", "ln_mlp_residual")
+     + _CRF_S4, 0.025, 0.93),
+    # seeded readings: 0.0201, 0.9833 (r0), 0.9848 (agg)
+    (192, False, {}, ("flash_mha_flat_qkv",) + _CRF_S4, 0.03, 0.975),
+    # seeded readings: 0.0255, 0.9758 (r0), 0.9890 (agg)
+    (192, True, dict(postprocess=dict(bilateral_subsample=1)),
+     _VIT_336 + (_K8,), 0.04, 0.96),
+    # seeded readings: 0.0255, 0.9758 (r0), 0.9889 (agg)
+    (192, True, dict(postprocess=dict(bilateral_subsample=4,
+                                      bilateral_mode="nystrom")),
+     _VIT_336 + (_K5, _K8), 0.04, 0.96),
+    # 32 classes: 2 x 33 = 66 state rows, beyond K6's 64, so the general
+    # loop runs on K5's kernel. Seeded readings: 0.0255, 0.9749 (r0),
+    # 0.9899 (agg)
+    (192, True, dict(max_classes=32), _VIT_336 + (_K5,), 0.04, 0.96),
+)
+
+
+def reference_check(image_size: int, vit_fused: bool, settings: dict,
+                    kernels, max_rel, min_agree):
     """Phase 4: a narrow configuration on the card against the CPU with
     the same weights and inputs. Phase 3 holds each kernel alone; this
     holds the wiring around them on the card (uint8 upload, strided views
@@ -483,7 +679,15 @@ def reference_check(image_size: int, vit_fused: bool, kernels, max_rel,
     from pnp_ovss_tpu_torch.pipeline.runner import SegmentationRunner
 
     cfg = narrow_config(image_size)
+    post = settings.get("postprocess", {})
+    cfg = dataclasses.replace(
+        cfg, postprocess=dataclasses.replace(cfg.postprocess, **post),
+        **{k: v for k, v in settings.items() if k != "postprocess"})
     images, cap, rgb, gt = synthetic_batch(cfg, 4, 64, seed=1)
+    name = (f"{image_size} px {'fused' if vit_fused else 'unfused'} ViT"
+            + "".join(f", {k}={v}" for k, v in post.items())
+            + "".join(f", {k}={v}" for k, v in settings.items()
+                      if k != "postprocess"))
     out = {}
     for device in ("cuda", "cpu"):
         model = init_blip_itm(cfg.model, capture_layer=0, seed=1,
@@ -493,12 +697,7 @@ def reference_check(image_size: int, vit_fused: bool, kernels, max_rel,
         out[device] = runner.run_batch(images, cap, rgb, return_maps=True,
                                        gt_sizes=gt)
         if device == "cuda":
-            counts = dict(_build.LAUNCHES)
-    name = f"{image_size} px {'fused' if vit_fused else 'unfused'} ViT"
-    wrong = {k: n for k, n in counts.items() if (n > 0) != (k in kernels)}
-    if wrong:
-        raise SystemExit(f"FAIL: narrow {name} launched {counts}, want "
-                         f"exactly {kernels}")
+            counts = launched_exactly(f"narrow {name}", kernels)
     g, c = out["cuda"], out["cpu"]
     for res in (g, c):
         if not (np.isfinite(res.maps_agg).all()
@@ -534,15 +733,17 @@ def full_config(image_size: int = 336):
 
 
 def pipeline_setup(seed: int = 0, *, image_size: int = 336,
-                   vit_fused: bool = True):
+                   vit_fused: bool = True, post=None):
     """A full-width runner on the card with random weights from ``seed``
-    (by default the reference default: 336 px, batch 35, fused ViT), and
-    one batch of synthetic inputs (images, captions, bucket RGB, GT
-    sizes)."""
+    (by default the reference default: 336 px, batch 35, fused ViT,
+    strided s=4 CRF; ``post`` replaces postprocess settings), and one
+    batch of synthetic inputs (images, captions, bucket RGB, GT sizes)."""
     from pnp_ovss_tpu_torch.models.blip_itm import init_blip_itm
     from pnp_ovss_tpu_torch.pipeline.runner import SegmentationRunner
 
     cfg = full_config(image_size)
+    cfg = dataclasses.replace(
+        cfg, postprocess=dataclasses.replace(cfg.postprocess, **(post or {})))
     model = init_blip_itm(cfg.model,
                           capture_layer=cfg.attribution.layer - 1, seed=seed,
                           device="cuda", vit_fused=vit_fused)
@@ -567,27 +768,42 @@ def timed_batches(runner, inputs, n_batches: int):
 
 
 # Phase 5's full-width runs: (name, image size, fused ViT, the ViT
-# kernels each layer of each drop round launches). The CRF kernels launch
-# once per image (K5) and once per image and iteration (K6) in every run.
+# kernels each layer of each drop round launches, postprocess settings
+# beside the default strided s=4 CRF).
 FULL_RUNS = (
-    ("336 px fused", 336, True,
-     ("ln_matmul", "flash_mha_flat_qkv", "ln_mlp_residual")),
+    ("336 px fused", 336, True, _VIT_336, {}),
     ("768 px fused", LEG_768[0], True,
-     ("ln_matmul", "flash_mha_qkv_proj", "ln_mlp_residual")),
-    ("336 px unfused", 336, False, ("flash_mha_flat_qkv",)),
+     ("ln_matmul", "flash_mha_qkv_proj", "ln_mlp_residual"), {}),
+    ("336 px unfused", 336, False, ("flash_mha_flat_qkv",), {}),
+    ("336 px fused exact CRF", 336, True, _VIT_336,
+     dict(bilateral_subsample=1)),
 )
 
 
 def expected_launches(cfg, vit_kernels) -> dict:
-    """Launches per batch of every kernel on one run's path."""
+    """Launches per batch of every kernel on one run's path. The CRF runs
+    once per image: the materialised strided CRF launches K5 once and K6
+    once per iteration; the exact and unmaterialised CRFs launch K8 once
+    per message (the degree, then each iteration); Nystrom launches K5
+    once (the anchor Gram matrix) and K8 twice per message."""
     from pnp_ovss_tpu_torch.ops import _build
+    from pnp_ovss_tpu_torch.ops.crf import _MATERIALIZE_LIMIT
 
     want = dict.fromkeys(_build.LAUNCHES, 0)
     for name in vit_kernels:
         want[name] = cfg.model.vit.num_layers * cfg.drop.num_rounds
-    want["gaussian_kernel_materialize"] = cfg.batch_size
-    want["crf_fused_iteration"] = \
-        cfg.batch_size * cfg.postprocess.crf.num_iters
+    pp, b = cfg.postprocess, cfg.batch_size
+    s, iters = pp.bilateral_subsample, pp.crf.num_iters
+    nystrom = pp.bilateral_mode == "nystrom" and s > 1
+    n, m = BUCKET * BUCKET, (-(-BUCKET // s)) ** 2
+    if not nystrom and s > 1 and n * m <= _MATERIALIZE_LIMIT:
+        if 2 * (cfg.max_classes + 1) > 64:
+            raise ValueError("a full-width run takes the fused CRF iteration")
+        want["gaussian_kernel_materialize"] = b
+        want["crf_fused_iteration"] = b * iters
+    else:
+        want[_K8] = b * (iters + 1) * (2 if nystrom else 1)
+        want[_K5] = b if nystrom else 0
     return want
 
 
@@ -666,16 +882,19 @@ def main() -> int:
     print("[3/5] kernels vs plain at the main paths' shapes", flush=True)
     rows = kernels_vs_plain(cfg)
     rows.update(fused_vit_kernels(cfg, cfg768))
+    rows["gaussian_kernel_matmul"] = kernel_matmul_check(cfg)
 
-    print("[4/5] narrow pipelines, card vs CPU", flush=True)
+    print("[4/5] CRF branches and narrow pipelines, card vs CPU", flush=True)
+    for args in CRF_BRANCHES:
+        crf_branch_check(*args)
     for args in NARROW_RUNS:
         reference_check(*args)
 
     print("[5/5] full-width pipelines", flush=True)
     runs = {}
-    for name, size, fused, vit_kernels in FULL_RUNS:
+    for name, size, fused, vit_kernels, post in FULL_RUNS:
         run_cfg, runner, inputs = pipeline_setup(image_size=size,
-                                                 vit_fused=fused)
+                                                 vit_fused=fused, post=post)
         print(f"  {name}: batch {run_cfg.batch_size}, "
               f"{run_cfg.model.vit.seq_len} tokens", flush=True)
         counts, img_s = run_pipeline(
@@ -687,7 +906,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # Launches of each kernel in the first run whose path takes it (K4:
-    # the 768 px run), and in every run.
+    # the 768 px run, K8: the exact CRF run), and in every run.
     for kname, row in rows.items():
         by_run = {r: v["launches"][kname] for r, v in runs.items()}
         row["launches"] = next((n for n in by_run.values() if n), 0)

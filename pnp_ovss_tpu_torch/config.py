@@ -137,9 +137,11 @@ class CRFConfig:
 class PostprocessConfig:
     """Blur + CRF selection (reference --postprocess, script :1002-1028).
 
-    The port runs the strided, materialised bilateral CRF only
-    (``bilateral_mode="strided"``, ``bilateral_subsample`` > 1); the other
-    modes of the JAX package raise ``NotImplementedError``.
+    ``bilateral_subsample`` is the stride of the bilateral anchor grid
+    (1 = the exact CRF). ``bilateral_mode`` "strided" sums the bilateral
+    message over the anchors; "nystrom" reconstructs the full kernel
+    through them as K_NA (K_AA + ``nystrom_ridge`` I)^-1 K_AN. Every mode
+    of the JAX package's device CRF runs (``ops/crf.py``).
     """
 
     mode: str = "blur+crf"  # "", "blur", "crf", "blur+crf"
@@ -147,6 +149,7 @@ class PostprocessConfig:
     crf: CRFConfig = dataclasses.field(default_factory=CRFConfig)
     bilateral_subsample: int = 4
     bilateral_mode: str = "strided"
+    nystrom_ridge: float = 1e-2
     # Scale the CRF's spatial stds per image by (bucket/gt_w, bucket/gt_h)
     # so the bucket-resolution CRF keeps the reference's relative reach.
     crf_xy_gt_scale: bool = True

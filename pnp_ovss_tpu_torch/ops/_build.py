@@ -41,6 +41,9 @@ SOURCES: Dict[str, Dict[str, list]] = {
     "crf_iteration": {
         "crf_fused_iteration": [_P, _P, _P, _P, _P, _P] + [_I] * 5 + [_P],
     },
+    "crf_matmul": {
+        "gaussian_kernel_matmul": [_P] * 4 + [_I] * 5 + [_P],
+    },
     "ln_matmul": {
         "ln_matmul_bf16": [_P] * 6 + [_I] * 3 + [_F, _P],
     },
@@ -62,6 +65,7 @@ LAUNCHES: Dict[str, int] = {
     "flash_mha_qkv_proj": 0,
     "gaussian_kernel_materialize": 0,
     "crf_fused_iteration": 0,
+    "gaussian_kernel_matmul": 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

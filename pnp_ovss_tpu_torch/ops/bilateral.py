@@ -1,6 +1,9 @@
-"""CRF bilateral kernels K5 and K6 (counterparts of
+"""CRF bilateral kernels K8, K5 and K6 (counterparts of
 ``pnp_ovss_tpu/ops/bilateral_pallas.py``).
 
+- ``gaussian_kernel_matmul`` (K8, ``csrc/crf_matmul.cu``) computes the
+  bilateral message ``sum_j exp(-||f_i - f_j||^2 / 2) v_j`` without
+  materialising the kernel: the exact, unmaterialised and Nystrom CRFs.
 - ``gaussian_kernel_materialize`` (K5, ``csrc/crf_materialize.cu``) builds
   the transposed bilateral kernel K^T [M_pad, N] once per image.
 - ``crf_fused_iteration`` (K6, ``csrc/crf_iteration.cu``) runs one
@@ -12,6 +15,8 @@ it runs the plain PyTorch version beside it.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from pnp_ovss_tpu_torch.ops import _build
@@ -19,6 +24,131 @@ from pnp_ovss_tpu_torch.ops import _build
 KT_QUANT_SCALE = 255.0  # uint8 kernel storage: k in [0, 1] -> round(k*255)
 _OUT_KIND = {torch.uint8: 0, torch.float32: 1}
 _ROW_ALIGN = 128  # K^T rows pad to this multiple with exact zeros
+_MATMUL_BJ = 64  # K8's j stage: features_j and v^T columns pad to it
+_MATMUL_CH_BLOCKS = (1, 2, 4, 6, 8)  # K8's 16-channel blocks per chunk
+_LOG2_SCALE = (0.5 / math.log(2.0)) ** 0.5  # exp(-d2 / 2) = 2^-(s^2 d2)
+
+
+def kernel_matmul_plain(features: torch.Tensor, values: torch.Tensor,
+                        features_j=None) -> torch.Tensor:
+    """Plain version of K8: explicit f32 differences, 256 i-rows at a time
+    to bound the [rows, M, F] intermediate (the full f32 kernel is 5.4 GB
+    at N = M = 36864); k and v rounded to bf16, f32 products."""
+    rows = 256
+    fi = features.float()
+    fj = fi if features_j is None else features_j.float()
+    v = values.to(torch.bfloat16).float()
+    out = torch.empty((fi.shape[0], v.shape[1]), dtype=torch.float32,
+                      device=fi.device)
+    for lo in range(0, fi.shape[0], rows):
+        d = fi[lo:lo + rows, None, :] - fj[None, :, :]
+        k = torch.exp(-0.5 * (d * d).sum(-1)).to(torch.bfloat16).float()
+        out[lo:lo + rows] = k @ v
+    return out
+
+
+def pack_features(features: torch.Tensor, rows: int) -> torch.Tensor:
+    """K8's feature operand: [rows, 8] f32, each row scaled so that
+    k = 2^-||f_i - f_j||^2 and zero beyond F and beyond the input's rows
+    (finite, so a pad column j adds k * 0 = 0 against v^T's zero
+    columns)."""
+    out = torch.zeros((rows, 8), dtype=torch.float32, device=features.device)
+    out[:features.shape[0], :features.shape[1]] = \
+        features.float() * _LOG2_SCALE
+    return out
+
+
+def launch_matmul(fn, fi: torch.Tensor, fj: torch.Tensor, f: int,
+                  values: torch.Tensor, stream: int, vt=None):
+    """One call of K8's C entry ``fn`` on packed features (``fi`` [N, 8],
+    ``fj`` [M_pad, 8]) and ``values`` [M, C], copied into v^T in bf16
+    (channels padded to the 16-channel chunks and columns to M_pad with
+    zeros). ``vt`` may be a buffer of that shape from an earlier call with
+    the same C and M, whose pads are still zero. Returns (return code,
+    out [N, C] f32, vt)."""
+    n, m_pad = fi.shape[0], fj.shape[0]
+    m, c = values.shape
+    nb = next((b for b in _MATMUL_CH_BLOCKS if 16 * b >= c), 8)
+    if vt is None:
+        vt = torch.zeros((-(-c // (16 * nb)) * 16 * nb, m_pad),
+                         dtype=torch.bfloat16, device=fi.device)
+    vt[:c, :m] = values.t()
+    out = torch.empty((n, c), dtype=torch.float32, device=fi.device)
+    rc = fn(fi.data_ptr(), fj.data_ptr(), vt.data_ptr(), out.data_ptr(), n,
+            m_pad, f, c, nb, stream)
+    return rc, out, vt
+
+
+def kernel_matmul_fn(features: torch.Tensor, features_j=None):
+    """values [M, C] -> ``gaussian_kernel_matmul(features, values,
+    features_j)``, with the features checked and, on the card, packed once
+    (the CRF makes one per image and calls it once per message)."""
+    fj_src = features if features_j is None else features_j
+    f, m = features.shape[1], fj_src.shape[0]
+    if fj_src.shape[1] != f or not 1 <= f <= 8:
+        raise ValueError(
+            f"gaussian_kernel_matmul: features {tuple(features.shape)}, "
+            f"features_j {tuple(fj_src.shape)} do not fit ([N, F<=8], "
+            "[M, F])")
+    if not (features.is_floating_point() and fj_src.is_floating_point()):
+        raise TypeError("gaussian_kernel_matmul: features must be floating "
+                        "point")
+    if fj_src.device != features.device:
+        raise ValueError("gaussian_kernel_matmul: inputs on different "
+                         "devices")
+
+    def check_values(values):
+        if values.shape[0] != m or values.ndim != 2:
+            raise ValueError(f"gaussian_kernel_matmul: values "
+                             f"{tuple(values.shape)}, want [{m}, C]")
+        if not values.is_floating_point():
+            raise TypeError("gaussian_kernel_matmul: values must be floating "
+                            "point")
+        if values.device != features.device:
+            raise ValueError("gaussian_kernel_matmul: inputs on different "
+                             "devices")
+
+    if features.device.type == "cpu":
+        def plain(values):
+            check_values(values)
+            return kernel_matmul_plain(features, values, features_j)
+        return plain
+
+    m_pad = -(-m // _MATMUL_BJ) * _MATMUL_BJ
+    fj = pack_features(fj_src, m_pad)
+    fi = fj[:features.shape[0]] if features_j is None else \
+        pack_features(features, features.shape[0])
+    _build.require_cuda("gaussian_kernel_matmul", fi=fi, fj=fj)
+    f_kernel = 5 if f <= 5 else 8
+    # v^T buffers by channel count, their pads zeroed once. Rewriting one
+    # is safe: the copy and the launches that read it are ordered on the
+    # current stream.
+    vts = {}
+
+    def launch(values):
+        check_values(values)
+        lib = _build.library("crf_matmul")
+        c = values.shape[1]
+        rc, out, vts[c] = launch_matmul(
+            lib.gaussian_kernel_matmul, fi, fj, f_kernel, values,
+            _build.stream_ptr(fi), vts.get(c))
+        _build.check(lib, rc, "gaussian_kernel_matmul")
+        _build.LAUNCHES["gaussian_kernel_matmul"] += 1
+        return out
+
+    return launch
+
+
+def gaussian_kernel_matmul(
+    features: torch.Tensor,  # [N, F], F <= 8
+    values: torch.Tensor,  # [M, C]; any strides (e.g. a transposed view)
+    features_j=None,  # [M, F] j-side support; None = ``features``
+) -> torch.Tensor:
+    """m_i = sum_j exp(-||f_i - f_j||^2 / 2) v_j, self included -> [N, C]
+    float32 (the JAX entry's signature and layout). The exponent is f32;
+    k and v are rounded to bf16 for the product, which accumulates in f32.
+    """
+    return kernel_matmul_fn(features, features_j)(values)
 
 
 def _quantize(k: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:

@@ -6,18 +6,25 @@ Reference semantics (reference script ``densecrf``, :1030-1074): unary
 (position/BI_XY_STD, rgb/BI_RGB_STD) (weight BI_W), both symmetrically
 normalised; 10 iterations of ``Q <- softmax(-U + sum_m w_m K'_m Q)``.
 
-The port carries only the JAX package's default branch
-(``crf.py:267-325`` and ``:476-544``):
+Every branch of the JAX package's ``mean_field_crf_variants`` is ported:
 
-- the bilateral support is the strided anchor grid (every s-th pixel per
-  axis, s > 1), its kernel K^T materialised once per image as uint8 by K5;
-- every iteration is one fused kernel K6 (bilateral product + energy +
-  per-variant softmax) over a bf16 state;
-- the spatial normaliser is folded into the separable band matrices once
-  per image (the exact rank-1 fold, ``crf.py:505-522``).
+- the default, strided s > 1 with the kernel K^T materialised once per
+  image as uint8 by K5, each iteration one fused kernel K6 over a bf16
+  state, the spatial normaliser folded into the band matrices
+  (``crf.py:267-325``, ``:476-544``);
+- the same materialised kernel under the unfused loop (``crf.py:384-390``,
+  ``:546-563``) where K6 cannot run: more than 64 state rows, or N not a
+  multiple of 128;
+- the exact CRF (s = 1) and the unmaterialised strided CRF, whose message
+  is one K8 product a call (``crf.py:429-433``);
+- the Nystrom reconstruction through the strided anchors, two K8 products
+  a call, the anchor Gram matrix built by K5 in f32 (``crf.py:391-428``).
 
-The unfused loop, the nystrom mode and the unmaterialised (on-the-fly)
-modes raise ``NotImplementedError``; ROADMAP.md lists them as still to port.
+The JAX package's gates alone choose the branch. Its knobs that no caller
+of the port sets are not ported: ``exclude_self``, ``unary_clip`` (fixed
+at 1e-5), ``materialize_kernel``, ``fused_iteration``, ``bilateral_impl``
+(the tensor's device decides) and the f32 opt-outs (uint8 K^T and bf16
+fused state only). No environment variable is read.
 """
 
 from __future__ import annotations
@@ -29,11 +36,11 @@ from pnp_ovss_tpu_torch.ops.bilateral import (
     KT_QUANT_SCALE,
     crf_fused_iteration,
     gaussian_kernel_materialize,
+    kernel_matmul_fn,
 )
 
 _MATERIALIZE_LIMIT = 7e8  # N*M entries (the JAX package's pallas limit)
-_NOT_PORTED = ("is not ported yet (see ROADMAP.md, 'TPU kernels to port': "
-               "the unfused CRF loop and K8)")
+_UNARY_CLIP = 1e-5  # the reference's clip of softmax(logits)
 
 
 def _pair(x, device) -> torch.Tensor:
@@ -75,60 +82,165 @@ def _apply_separable(kh, kw, q):
     return torch.matmul(torch.matmul(kh, q.float()), kw.transpose(0, 1))
 
 
+def spatial_gaussian_apply(q: torch.Tensor, sigma) -> torch.Tensor:
+    """K @ q for the separable 2D spatial Gaussian. q: [..., H, W];
+    ``sigma`` is a scalar or ``(sigma_y, sigma_x)``."""
+    h, w = q.shape[-2:]
+    kh, kw = spatial_band_matrices(h, w, _pair(sigma, q.device))
+    return _apply_separable(kh, kw, q)
+
+
+def _normalised_apply(apply_fn, q_flat: torch.Tensor,
+                      norm: torch.Tensor) -> torch.Tensor:
+    """Symmetric normalisation: n * K(n * q)."""
+    return norm * apply_fn(norm * q_flat)
+
+
+def mean_field_crf(logits: torch.Tensor, image_rgb: torch.Tensor,
+                   cfg: CRFConfig, **kw) -> torch.Tensor:
+    """Single-variant mean-field inference: logits [C, H, W] -> labels
+    [H, W] int64."""
+    return mean_field_crf_variants(logits[None], image_rgb, cfg, **kw)[0]
+
+
 def mean_field_crf_variants(
     logits: torch.Tensor,  # [V, C, H, W]: V unary variants, shared image
     image_rgb: torch.Tensor,  # [H, W, 3] 0-255
     cfg: CRFConfig,
     *,
     bilateral_subsample: int = 4,
-    bilateral_mode: str = "strided",
+    bilateral_mode: str = "strided",  # "strided" | "nystrom"
+    nystrom_ridge: float = 1e-2,
     xy_scale=1.0,
 ) -> torch.Tensor:
     """Mean-field inference for V unary variants of one image -> labels
     [V, H, W] int64.
 
-    ``xy_scale`` (scalar or ``(sx, sy)``) multiplies the spatial stds so the
-    bucket-resolution CRF keeps the reference's relative reach per axis
-    (the runner passes ``(bucket/gt_w, bucket/gt_h)``)."""
+    ``bilateral_subsample`` s > 1 restricts the bilateral support to every
+    s-th pixel per axis: "strided" sums over that subset, "nystrom"
+    reconstructs K ~= K_NA (K_AA + ridge I)^-1 K_AN through it; s = 1 is
+    the exact CRF. ``xy_scale`` (scalar or ``(sx, sy)``) multiplies the
+    spatial stds so the bucket-resolution CRF keeps the reference's
+    relative reach per axis (the runner passes ``(bucket/gt_w,
+    bucket/gt_h)``). The strided kernel is materialised where N*M <= 7e8;
+    K6 then runs each iteration where v*c <= 64 and N % 128 == 0, as the
+    JAX package decides."""
+    if bilateral_mode not in ("strided", "nystrom"):
+        raise ValueError(f"bilateral_mode={bilateral_mode!r}: want "
+                         "'strided' or 'nystrom'")
     v, c, h, w = logits.shape
     n = h * w
     s = bilateral_subsample
     hs, ws = -(-h // s), -(-w // s)
-    if bilateral_mode != "strided" or s < 2:
-        raise NotImplementedError(
-            f"bilateral_mode={bilateral_mode!r}, subsample={s} " + _NOT_PORTED)
-    if n * hs * ws > _MATERIALIZE_LIMIT:
-        raise NotImplementedError(
-            f"an unmaterialised CRF (N*M={n * hs * ws:.3g}) " + _NOT_PORTED)
-    if v * c > 64 or n % 128:
-        raise NotImplementedError(
-            f"the unfused CRF loop (V*C={v * c}, N={n}) " + _NOT_PORTED)
     dev = logits.device
-    # bf16 products on the card; f32 on the CPU, as crf.py:279.
-    mm_dtype = torch.float32 if dev.type == "cpu" else torch.bfloat16
-    state_dtype = torch.bfloat16
 
     q0 = torch.softmax(logits.float(), dim=1)
-    u_flat = -torch.log(torch.clamp(q0, 1e-5, 1.0)).reshape(v * c, n)
+    u_flat = -torch.log(torch.clamp(q0, _UNARY_CLIP, 1.0)).reshape(v * c, n)
 
     scale_xy = _pair(xy_scale, dev)  # (sx, sy)
     pos_xy_std = cfg.pos_xy_std * scale_xy.flip(0)  # (sigma_y, sigma_x)
     feats = bilateral_features(image_rgb, cfg.bi_xy_std * scale_xy,
                                cfg.bi_rgb_std)
+    # The bilateral support: every s-th pixel per axis (all of them at s=1).
     feats_j = feats.reshape(h, w, 5)[::s, ::s].reshape(-1, 5)
-    kt = gaussian_kernel_materialize(feats_j, feats, out_dtype=torch.uint8)
-    m_pad = kt.shape[0]
 
-    def take_j_pad(q_cn):  # [C', N] -> [C', M_pad], zero pad columns
-        qs = q_cn.reshape(-1, h, w)[:, ::s, ::s].reshape(q_cn.shape[0], -1)
-        return torch.nn.functional.pad(qs, (0, m_pad - qs.shape[1]))
+    def take_j_cols(x):  # [C', N] -> [C', M]
+        return x.reshape(-1, h, w)[:, ::s, ::s].reshape(x.shape[0], -1)
 
-    # Bilateral degree: the all-ones anchor row times K^T is the column sum
-    # of the stored codes (integers, exact in f32), then the 1/255 scale.
-    deg_bi = kt.sum(dim=0, dtype=torch.float32)[None] * (1.0 / KT_QUANT_SCALE)
+    use_nystrom = bilateral_mode == "nystrom" and s > 1
+    materialised = (bilateral_mode == "strided" and s > 1
+                    and n * hs * ws <= _MATERIALIZE_LIMIT)
+    fused = materialised and v * c <= 64 and n % 128 == 0
+
+    if materialised:
+        kt = gaussian_kernel_materialize(feats_j, feats,
+                                         out_dtype=torch.uint8)
+        m_pad = kt.shape[0]
+
+        def take_j_pad(q_cn):  # [C', N] -> [C', M_pad], zero pad columns
+            qs = take_j_cols(q_cn)
+            return torch.nn.functional.pad(qs, (0, m_pad - qs.shape[1]))
+
+        # The all-ones anchor row times K^T is the column sum of the stored
+        # codes (integers, exact in f32), then the 1/255 scale.
+        deg_bi = kt.sum(dim=0, dtype=torch.float32)[None] \
+            * (1.0 / KT_QUANT_SCALE)
+        if fused:
+            return _fused_loop(q0, u_flat, kt, take_j_pad, deg_bi, pos_xy_std,
+                               cfg, h, w)
+        # Unfused loop on the materialised kernel: v^T [C', M] @ K^T with
+        # bf16 operands on the card (f32 on the CPU, crf.py:279) and f32
+        # sums, descaled by 1/255. The codes are integers, exact in bf16
+        # and f32, so the f32 product of the bf16-rounded state equals the
+        # JAX package's bf16 dot with an f32 result. K^T is cast once per
+        # image here, where the JAX package casts it in every iteration.
+        mm_dtype = torch.float32 if dev.type == "cpu" else torch.bfloat16
+        kt_f = kt.float()
+
+        def bilateral_apply(q_cn):
+            qs = take_j_pad(q_cn).to(mm_dtype).float()
+            return torch.matmul(qs, kt_f) * (1.0 / KT_QUANT_SCALE)
+    elif use_nystrom:
+        # The anchor Gram matrix K_AA, f32 from K5's explicit differences
+        # (fault F2: the ||a||^2 + ||b||^2 - 2ab expansion cancels for
+        # near-duplicate anchors and loses positive definiteness),
+        # factorised once per image; cholesky_ex does not wait on the host.
+        # K_AA is ill-conditioned, so the per-iteration projection stays in
+        # f32 (the port leaves TF32 off).
+        fa = feats_j
+        m_a = fa.shape[0]
+        eye = torch.eye(m_a, dtype=torch.float32, device=dev)
+        k_aa = gaussian_kernel_materialize(fa, fa,
+                                           out_dtype=torch.float32)[:m_a]
+        chol, _ = torch.linalg.cholesky_ex(k_aa + nystrom_ridge * eye)
+        k_aa_inv = torch.cholesky_solve(eye, chol)
+        k_an, k_na = kernel_matmul_fn(fa, feats), kernel_matmul_fn(feats, fa)
+
+        def bilateral_apply(q_cn):  # [C', N] -> [C', N], two K8 products
+            return k_na(k_aa_inv @ k_an(q_cn.t())).t()
+    else:
+        k_nm = kernel_matmul_fn(feats, feats_j if s > 1 else None)
+
+        def bilateral_apply(q_cn):  # [C', N] -> [C', N], one K8 product
+            return k_nm(take_j_cols(q_cn).t()).t()
+
+    if not materialised:
+        deg_bi = bilateral_apply(torch.ones((1, n), device=dev))
     norm_bi = torch.rsqrt(torch.clamp(deg_bi, min=1e-20))  # [1, N]
 
-    # Exact rank-1 fold of the spatial normaliser into the band matrices.
+    kh, kw = spatial_band_matrices(h, w, pos_xy_std)
+
+    def spatial_apply(q_cn):  # [C', N] -> [C', N]
+        return _apply_separable(kh, kw, q_cn.reshape(-1, h, w)) \
+            .reshape(q_cn.shape[0], n)
+
+    deg_sp = spatial_apply(torch.ones((1, n), device=dev))
+    norm_sp = torch.rsqrt(torch.clamp(deg_sp, min=1e-20))  # [1, N]
+
+    q = q0.reshape(v * c, n)
+    for _ in range(cfg.num_iters):
+        m_bi = _normalised_apply(bilateral_apply, q, norm_bi)
+        m_sp = _normalised_apply(spatial_apply, q, norm_sp)
+        energy = -u_flat + cfg.bi_w * m_bi + cfg.pos_w * m_sp
+        # The mean-field softmax runs per variant block of c rows.
+        q = torch.softmax(energy.reshape(v, c, n), dim=1).reshape(v * c, n)
+    return torch.argmax(q.reshape(v, c, n), dim=1).reshape(v, h, w)
+
+
+def _fused_loop(q0, u_flat, kt, take_j_pad, deg_bi, pos_xy_std,
+                cfg: CRFConfig, h: int, w: int) -> torch.Tensor:
+    """The default branch's iterations: one K6 launch each over a bf16
+    state of R = v*c rows rounded up to 16 (pad rows exactly 0), with the
+    spatial normaliser folded into the band matrices (the exact rank-1
+    fold, ``crf.py:505-522``; valid because the fused branch keeps the
+    self term)."""
+    v, c = q0.shape[:2]
+    n = h * w
+    # bf16 products on the card; f32 on the CPU, as crf.py:279.
+    mm_dtype = torch.float32 if q0.device.type == "cpu" else torch.bfloat16
+    state_dtype = torch.bfloat16
+    norm_bi = torch.rsqrt(torch.clamp(deg_bi, min=1e-20))  # [1, N]
+
     kh, kw = spatial_band_matrices(h, w, pos_xy_std)
     nh = torch.rsqrt(torch.clamp(kh.sum(1), min=1e-20))
     nw = torch.rsqrt(torch.clamp(kw.sum(1), min=1e-20))

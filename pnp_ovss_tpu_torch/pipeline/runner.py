@@ -8,7 +8,8 @@ threshold -> bilinear upsample to the bucket resolution, for the round-0
 map (rescaled 0-1) and the aggregated map.
 
 POSTPROCESS (per batch): background channel -> blur + per-channel min-max
--> per image, one CRF over both variants (kernels K5 and K6) -> labels.
+-> per image, one CRF over both variants (by default kernels K5 and K6; the
+exact, unmaterialised and Nystrom CRFs through K8) -> labels.
 Disabled channels (padded class slots, and background where the context
 rule says so) are driven to -1e30 after the blur.
 
@@ -143,10 +144,11 @@ class SegmentationRunner:
             crf_mod.mean_field_crf_variants(
                 wbg[i], images_rgb[i].float(), pp.crf,
                 bilateral_subsample=pp.bilateral_subsample,
-                bilateral_mode=pp.bilateral_mode, xy_scale=xy_scale[i])
+                bilateral_mode=pp.bilateral_mode,
+                nystrom_ridge=pp.nystrom_ridge, xy_scale=xy_scale[i])
             for i in range(wbg.shape[0])
         ]
-        # Channel indices fit in uint8 (K+1 <= 29).
+        # Channel indices fit in uint8 (max_classes + 1 <= 256).
         return torch.stack(labels).to(torch.uint8)
 
     def run_batch(self, images, caption_batch, images_rgb_bucket, *,

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """What bounds the fused ViT kernels K1 (ln_matmul) and K3 (ln_mlp_residual)
-on one GPU: each is rebuilt with one part of its work taken out and timed
-at the 336 px main-path shape beside the full kernel.
+and the CRF's K8 (gaussian_kernel_matmul) on one GPU: each is rebuilt with
+one part of its work taken out and timed at its main-path shape (336 px;
+K8 at the exact CRF's N = M = 36864, C = 58 and C = 1) beside the full
+kernel.
 
     python3 scripts/kernel_ablation.py [--out DIR]
 
@@ -13,7 +15,15 @@ their times are read):
   tensor-core products by a register update, ``no_w_loads`` stops
   streaming W tiles (the product reads stale shared memory);
 - K3: ``no_gelu`` stores the fc1 output without the gelu, ``no_w_loads``
-  stops streaming W1 / W2 tiles, ``no_fc2_mma`` drops fc2's products.
+  stops streaming W1 / W2 tiles, ``no_fc2_mma`` drops fc2's products;
+- K8: ``no_ex2`` uses d^2 itself as k, ``two_diffs`` sums 2 of the 5
+  squared differences, ``no_mma`` replaces the products by a register
+  update, ``no_stage`` stages only the first 64 columns (the loop reads
+  stale shared memory); and four variants whose outputs stay right:
+  ``warps3``, ``warps4`` and ``warps8`` give a block 3, 4 or 8 warps of
+  16 rows in place of 6, ``bj32`` stages 32 columns in place of 64.
+  Each K8 call goes through ``bilateral.launch_matmul``, as the wrapper's
+  does, so its time includes the copy of the values into v^T.
 
 Also times cuBLAS on K1's product alone (``F.linear`` on the normalised
 rows) as a yardstick. Prints the card's name and power limit first.
@@ -55,6 +65,26 @@ VARIANTS = {
                        ("c < D * kBF / 8;", "c < 0;")],
         "no_fc2_mma": [_NO_MMA, ("pnp::mma_bf16_16816(acc[i]",
                                  "no_mma(acc[i]")],
+    },
+    "crf_matmul": {
+        "full": [],
+        "no_ex2": [("k[h][q] = exp2_neg(d2);", "k[h][q] = d2;")],
+        "two_diffs": [("for (int d = 0; d < F; ++d) {\n            const "
+                       "float diff", "for (int d = 0; d < 2; ++d) {\n     "
+                       "       const float diff")],
+        # K8 computes its A fragment itself, so the stand-in reads all of
+        # it or the compiler drops the unread kernel entries.
+        "no_mma": [
+            (_NO_MMA[0], _NO_MMA[1].replace(
+                "a[0] ^ b0", "a[0] ^ a[1] ^ a[2] ^ a[3] ^ b0")),
+            ("pnp::mma_bf16_16816(acc[2 * nb],", "no_mma(acc[2 * nb],"),
+            ("pnp::mma_bf16_16816(acc[2 * nb + 1],",
+             "no_mma(acc[2 * nb + 1],")],
+        "no_stage": [("      stage(buf ^ 1, (jt + 1) * kBJ);", "")],
+        "warps3": [("kWarps = 6;", "kWarps = 3;")],
+        "warps4": [("kWarps = 6;", "kWarps = 4;")],
+        "warps8": [("kWarps = 6;", "kWarps = 8;")],
+        "bj32": [("kBJ = 64;", "kBJ = 32;")],
     },
 }
 
@@ -98,7 +128,7 @@ def main() -> int:
     from torch.nn import functional as F
 
     import chip_smoke
-    from pnp_ovss_tpu_torch.ops import vit_block
+    from pnp_ovss_tpu_torch.ops import bilateral, vit_block
 
     if not torch.cuda.is_available():
         print("kernel_ablation: no CUDA device", file=sys.stderr)
@@ -129,8 +159,39 @@ def main() -> int:
     z = torch.empty_like(x)
     stream = torch.cuda.current_stream().cuda_stream
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    print(f"336 px main-path shapes: M={m}, D={d}, N={n}, F={f}", flush=True)
+    # K8 at the exact CRF's shape: the pixel features of the 192 bucket.
+    hb = chip_smoke.BUCKET
+    feats = chip_smoke.photo_like_rgb(hb, hb, gen).reshape(-1, 3) / 5.0
+    pos = torch.stack(torch.meshgrid(
+        torch.arange(hb, device=dev), torch.arange(hb, device=dev),
+        indexing="xy"), -1).reshape(-1, 2) / 50.0
+    feats = torch.cat([pos, feats], 1)
+    n8 = feats.shape[0]
+    fp = bilateral.pack_features(feats, n8)  # N is a multiple of 64
+    k8_vals = {c: torch.rand((n8, c), generator=gen, device=dev)
+               for c in (58, 1)}
+    k8_ref = {c: bilateral.gaussian_kernel_matmul(feats, v)
+              for c, v in k8_vals.items()}
+    print(f"336 px main-path shapes: M={m}, D={d}, N={n}, F={f}; K8 N=M="
+          f"{feats.shape[0]}", flush=True)
     for (src, name), lib in libs.items():
+        if src == "crf_matmul":
+            fn = lib.gaussian_kernel_matmul
+            fn.argtypes = [P] * 4 + [I] * 5 + [P]
+            for c, vals in k8_vals.items():
+                _, out, vt = bilateral.launch_matmul(fn, fp, fp, 5, vals,
+                                                     stream)
+                # The full kernel's outputs: 0 for the variants that keep
+                # them right.
+                diff = (out - k8_ref[c]).abs().max().item()
+                ms = chip_smoke.time_ms(
+                    lambda fn=fn, vals=vals, vt=vt: bilateral.launch_matmul(
+                        fn, fp, fp, 5, vals, stream, vt), 10)
+                pairs = float(n8) * n8
+                print(f"{src} {name} C={c}: {ms:.4f} ms "
+                      f"({pairs / ms / 1e9:.3f} T pairs/s; max |out - full| "
+                      f"{diff:.3g})", flush=True)
+            continue
         if src == "ln_matmul":
             fn = lib.ln_matmul_bf16
             fn.argtypes = [P] * 6 + [I] * 3 + [Fl, P]

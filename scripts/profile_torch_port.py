@@ -8,12 +8,13 @@ Runs one of chip_smoke.py's phase-5 pipelines of ``pnp_ovss_tpu_torch``
 as it builds them (``chip_smoke.pipeline_setup``: BLIP-ITM-Large with
 seeded random weights, 4 drop rounds, bucket 192, blur + 10-iteration
 CRF; by default the reference default, 336 px, batch 35, fused ViT; also
-"768 px fused", batch 12, and "336 px unfused") once to warm up, then
+"768 px fused", batch 12, "336 px unfused" and "336 px fused exact CRF",
+the reference default with the exact CRF through K8) once to warm up, then
 ``--batches`` double-buffered batches without and then with
 ``torch.profiler`` tracing the device's kernels only (no host-side op
-recording, which slows the host's dispatch). Prints the card, the wall time per batch of both
-windows, the device's busy time (the union of kernel intervals) and idle
-share of the traced window, the tracing's cost in wall time, and the
+recording, which slows the host's dispatch). Prints the card, the wall
+time per batch of both windows, the device's busy time (the union of
+kernel intervals) and idle share of the traced window, the tracing's cost in wall time, and the
 kernels that take the most device time. The full table is written to
 ``DIR/profile_torch_port_<run>.txt``.
 """
@@ -67,10 +68,11 @@ def main() -> int:
     if args.run not in runs:
         raise SystemExit(f"profile_torch_port: --run must be one of "
                          f"{sorted(runs)}")
-    _, size, fused, _ = runs[args.run]
+    _, size, fused, _, post = runs[args.run]
     card = chip_smoke.card_line()
     cfg, runner, inputs = chip_smoke.pipeline_setup(image_size=size,
-                                                    vit_fused=fused)
+                                                    vit_fused=fused,
+                                                    post=post)
     images, cap, rgb, gt = inputs
     runner.run_batch(images, cap, rgb, gt_sizes=gt)
     torch.cuda.synchronize()

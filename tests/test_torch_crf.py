@@ -1,10 +1,10 @@
 """Port CRF (pnp_ovss_tpu_torch) vs the JAX package.
 
-The port's CPU path runs the plain versions of kernels K5
-(gaussian_kernel_materialize) and K6 (crf_fused_iteration); the JAX side
-runs its Pallas kernels in interpret mode. Inputs are numpy arrays from a
-seed, handed to both. chip_smoke.py holds the CUDA kernels against the
-same plain versions on the card.
+The port's CPU path runs the plain versions of kernels K8
+(gaussian_kernel_matmul), K5 (gaussian_kernel_materialize) and K6
+(crf_fused_iteration); the JAX side runs its Pallas kernels in interpret
+mode. Inputs are numpy arrays from a seed, handed to both. chip_smoke.py
+holds the CUDA kernels against the same plain versions on the card.
 """
 
 import jax.numpy as jnp
@@ -157,10 +157,155 @@ def test_blur_and_minmax_matches_jax(dtype):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("kw", [dict(bilateral_mode="nystrom"),
-                                dict(bilateral_subsample=1)])
-def test_unported_crf_modes_raise(kw):
-    image, logits = _scene(np.random.RandomState(8), 32, 32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_crf.mean_field_crf_variants(_t(logits[None]), _t(image),
-                                         CRFConfig(num_iters=1), **kw)
+def _two_colour(rng, h, w, noise):
+    """tests/test_crf.py's structured scene: two colour halves, noisy
+    logits favouring each half's class."""
+    image = np.zeros((h, w, 3), np.float32)
+    image[:, : w // 2] = [200, 40, 40]
+    image[:, w // 2:] = [40, 40, 200]
+    image += rng.randn(h, w, 3) * noise
+    logits = rng.randn(3, h, w).astype(np.float32) * 0.5
+    logits[0, :, : w // 2] += 1.5
+    logits[1, :, w // 2:] += 1.5
+    return image.astype(np.float32), logits
+
+
+@pytest.mark.parametrize("n,m,c", [(600, None, 1), (600, None, 58),
+                                   (600, 300, 1), (600, 300, 58)])
+def test_kernel_matmul_matches_jax_kernel(n, m, c):
+    """K8 plain (explicit f32 differences) vs the Pallas kernel (f32
+    expansion at HIGHEST precision), at realistic feature magnitudes with
+    self support (m None) and with a separate features_j, N not a multiple
+    of the 512-row tile; C = 1 is the degree launch (ones), C = 58 signed
+    values. Both round k and v to bf16, so a k code may flip where the two
+    exponent formulations straddle a rounding boundary: one bf16 ulp
+    (2^-8) of one term k|v| <= |v|. Seeded readings: max abs differences
+    1.9e-6, 5.1e-7, 9.5e-7, 8.1e-8 (|out| up to 3.9). Against a float64
+    oracle, each term carries two bf16 roundings of at most 2^-8 relative
+    each, so the plain version is within 2^-7 * (K @ |v|) of the exact
+    message."""
+    rng = np.random.RandomState(21)
+    fi = _feats(rng, n)
+    fj = None if m is None else _feats(rng, m)
+    rows = n if m is None else m
+    vals = (np.ones((rows, c), np.float32) if c == 1
+            else rng.randn(rows, c).astype(np.float32))
+    want = np.asarray(jax_bp.gaussian_kernel_matmul(
+        jnp.asarray(fi), jnp.asarray(vals),
+        None if fj is None else jnp.asarray(fj)))
+    got = port_bp.gaussian_kernel_matmul(
+        _t(fi), _t(vals), None if fj is None else _t(fj))
+    assert got.dtype == torch.float32 and got.shape == (n, c)
+    got = got.numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=2 ** -8 * np.abs(vals).max())
+    fj64 = (fi if fj is None else fj).astype(np.float64)
+    k = np.exp(-0.5 * ((fi[:, None].astype(np.float64) - fj64[None]) ** 2)
+               .sum(-1))
+    assert np.all(np.abs(got - k @ vals) <= 2 ** -7 * (k @ np.abs(vals))
+                  + 1e-6)
+
+
+def test_kernel_matmul_reads_strided_values():
+    """The CRF hands K8 transposed and strided views of its [C', N] state;
+    the result equals that of a contiguous copy."""
+    rng = np.random.RandomState(22)
+    f = _t(_feats(rng, 96))
+    state = _t(rng.rand(7, 192).astype(np.float32))
+    view = state[:, ::2].t()  # [96, 7], strides (2, 192)
+    torch.testing.assert_close(
+        port_bp.gaussian_kernel_matmul(f, view),
+        port_bp.gaussian_kernel_matmul(f, view.contiguous()), rtol=0, atol=0)
+
+
+def test_spatial_gaussian_apply_matches_jax():
+    rng = np.random.RandomState(23)
+    q = rng.rand(3, 12, 17).astype(np.float32)
+    want = np.asarray(jax_crf.spatial_gaussian_apply(
+        jnp.asarray(q), jnp.asarray([2.0, 3.5])))
+    got = port_crf.spatial_gaussian_apply(_t(q), [2.0, 3.5]).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+def _branch_inputs(case):
+    """(logits [V, C, H, W], image, keyword arguments) of one branch."""
+    rng = np.random.RandomState(31)
+    size, kw = {
+        "exact_s1": (48, dict(bilateral_subsample=1)),
+        "unmaterialised_s2": (48, dict(bilateral_subsample=2)),
+        "many_classes": (32, dict(bilateral_subsample=4)),
+        "ragged_n": (40, dict(bilateral_subsample=4)),
+        "nystrom_s4": (48, dict(bilateral_subsample=4,
+                                bilateral_mode="nystrom")),
+    }[case]
+    image, logits = _scene(rng, size, size)
+    if case == "many_classes":  # v * c = 80 > 64 state rows
+        extra = rng.randn(36, size, size).astype(np.float32) * 0.5
+        logits = np.concatenate([logits, extra])
+    return np.stack([logits, logits[::-1]]), image, kw
+
+
+@pytest.mark.parametrize("case,bar", [
+    ("exact_s1", 0.999), ("unmaterialised_s2", 0.999),
+    ("many_classes", 0.999), ("ragged_n", 0.999), ("nystrom_s4", 0.995)])
+def test_crf_branch_matches_jax(case, bar, monkeypatch):
+    """Each branch of mean_field_crf_variants beside the default one (which
+    test_mean_field_crf_matches_jax_fused_path covers), against the JAX
+    function at bilateral_impl="pallas" (K8 and K5 in interpret mode), two
+    variants, 10 iterations, anisotropic xy_scale. exact_s1 and
+    unmaterialised_s2 run K8 once per message (unmaterialised_s2 with the
+    port's 7e8-entry materialisation limit set to 0, and the JAX function
+    at materialize_kernel=False), nystrom_s4 twice; many_classes (v*c =
+    80 > 64) and ragged_n (N = 1600, not a multiple of 128) run the
+    materialised kernel under the unfused loop. Labels agree on more than
+    99.9% of pixels; Nystrom more than 99.5%, since K_AA^-1 amplifies
+    rounding by its condition number. Seeded readings: 1.0 in every
+    case."""
+    logits, image, kw = _branch_inputs(case)
+    jax_kw = dict(kw)
+    if case == "unmaterialised_s2":
+        monkeypatch.setattr(port_crf, "_MATERIALIZE_LIMIT", 0)
+        jax_kw["materialize_kernel"] = False
+    want = np.asarray(jax_crf.mean_field_crf_variants(
+        jnp.asarray(logits), jnp.asarray(image), JaxCRFConfig(),
+        bilateral_impl="pallas", xy_scale=jnp.asarray([0.4, 0.5]), **jax_kw))
+    got = port_crf.mean_field_crf_variants(
+        _t(logits), _t(image), CRFConfig(), xy_scale=torch.tensor([0.4, 0.5]),
+        **kw).numpy()
+    assert got.shape == want.shape == logits[:, 0].shape
+    assert (got == want).mean() > bar, (got == want).mean()
+    assert len(np.unique(got)) > 1
+
+
+def test_nystrom_gram_matrix_is_cancellation_safe():
+    """Fault F2 (tests/test_crf.py's test of the same name): adjacent
+    anchors of a structured scene are near-duplicates, so K_AA built by the
+    ||a||^2 + ||b||^2 - 2ab expansion loses positive definiteness and the
+    Cholesky factor turns to NaN. Built from explicit differences (K5's f32
+    output), Nystrom at s = 8 stays finite and agrees with the exact CRF
+    (> 99.5%, the JAX test's bar)."""
+    image, logits = _two_colour(np.random.RandomState(5), 64, 64, noise=5.0)
+    cfg = CRFConfig(num_iters=10)
+    exact = port_crf.mean_field_crf(_t(logits), _t(image), cfg,
+                                    bilateral_subsample=1).numpy()
+    ny = port_crf.mean_field_crf(_t(logits), _t(image), cfg,
+                                 bilateral_subsample=8,
+                                 bilateral_mode="nystrom").numpy()
+    assert ny.shape == (64, 64) and ny.min() >= 0 and ny.max() < 3
+    assert (ny == exact).mean() > 0.995, (ny == exact).mean()
+
+
+def test_kernel_matmul_fn_matches_one_shot_calls():
+    """The CRF packs K8's features once per image (``kernel_matmul_fn``)
+    and calls it with many values; each call equals the one-shot entry, and
+    values of the wrong length raise."""
+    rng = np.random.RandomState(24)
+    fi, fj = _t(_feats(rng, 150)), _t(_feats(rng, 70))
+    fn = port_bp.kernel_matmul_fn(fi, fj)
+    for c in (1, 58, 1):
+        vals = _t(rng.randn(70, c).astype(np.float32))
+        torch.testing.assert_close(
+            fn(vals), port_bp.gaussian_kernel_matmul(fi, vals, fj),
+            rtol=0, atol=0)
+    with pytest.raises(ValueError):
+        fn(torch.zeros(69, 3))

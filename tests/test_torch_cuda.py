@@ -10,7 +10,9 @@ It covers the shapes and code paths ``chip_smoke.py`` does not reach at
 the main path's shapes: head dim 128, ragged sequence and pixel counts,
 row-padded anchors, one variant and fewer than 64 state rows; for the
 fused ViT kernels (K1, K3, K4) row counts that are no multiple of the
-row tile, narrow widths, masked keys and several key tiles.
+row tile, narrow widths, masked keys and several key tiles; for K8 ragged
+N and M, M != N, 1 to 150 channels and strided values; and the CRF's
+exact, Nystrom and general-loop branches on the card against the CPU.
 """
 
 import numpy as np
@@ -122,24 +124,104 @@ def test_crf_iteration_kernel_matches_plain(cuda, v, c):
     assert not out[v * c:].any()
 
 
+@pytest.mark.parametrize("n,m,c,view", [
+    (1000, None, 1, False), (1000, None, 58, False), (777, 130, 82, False),
+    (130, 777, 58, True), (1000, None, 150, True)])
+def test_kernel_matmul_matches_plain(cuda, n, m, c, view):
+    """K8 at ragged N and M (no multiple of the 96-row block or the 64-column
+    stage), M != N both ways, C = 1 (the degree), 58 (two variants of 29),
+    82 (--max_classes 40) and 150 (two 128-channel chunks), and values as a
+    strided transposed view. Both round k to bf16, so a k code may flip
+    where the summation order of the exponent differs: one bf16 ulp of one
+    term, bounded by 5e-3 of the largest output."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    fi = _feats(gen, n)
+    fj = None if m is None else _feats(gen, m)
+    rows = n if m is None else m
+    # Clustered colours so that many pairs interact, not only the self term.
+    for f in (fi, fj):
+        if f is not None:
+            f[:, 2:] = (f[:, 2:] / 8).round() * 8 + 0.3 * _randn(
+                gen, f.shape[0], 3)
+    if view:
+        vals = _randn(gen, c, 2 * rows)[:, ::2].t()
+        assert not vals.is_contiguous()
+    else:
+        vals = _randn(gen, rows, c)
+    before = _build.LAUNCHES["gaussian_kernel_matmul"]
+    out = bilateral.gaussian_kernel_matmul(fi, vals, fj)
+    assert _build.LAUNCHES["gaussian_kernel_matmul"] == before + 1
+    ref = bilateral.kernel_matmul_plain(fi, vals, fj)
+    assert out.shape == (n, c) and out.dtype == torch.float32
+    err = (out - ref).abs().max().item()
+    assert err <= 5e-3 * ref.abs().max().item(), err
+
+
+def test_kernel_matmul_refuses_mixed_devices(cuda):
+    f = torch.zeros(64, 5, device=cuda)
+    with pytest.raises(ValueError):
+        bilateral.gaussian_kernel_matmul(f, torch.zeros(64, 3))
+
+
+def _crf_scene(seed, size, c, noise):
+    """A textured image and two variants of noisy logits over ``c``
+    channels, the first two favoured in one half each."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    image = np.stack([120 + 60 * np.sin(xx / 9.0), 100 + 50 * np.cos(yy / 7.0),
+                      90 + 45 * np.sin((xx + yy) / 11.0)], -1)
+    image = np.clip(image + rng.randn(size, size, 3) * noise, 0, 255)
+    logits = rng.randn(2, c, size, size).astype(np.float32) * 0.5
+    logits[:, 0, : size // 2] += 0.8
+    logits[:, 1, size // 2:] += 0.8
+    return torch.from_numpy(logits), torch.from_numpy(image.astype(np.float32))
+
+
+def _crf_card_vs_cpu(cuda, logits, image, **kw):
+    """Labels of mean_field_crf_variants on the CPU and on the card, and
+    the card run's launches of each kernel."""
+    labels = {}
+    for dev in ("cpu", cuda):
+        _build.reset_launch_counts()
+        labels[str(dev)] = crf.mean_field_crf_variants(
+            logits.to(dev), image.to(dev), CRFConfig(), xy_scale=(0.4, 0.5),
+            **kw).cpu()
+    agree = (labels["cpu"] == labels["cuda"]).float().mean().item()
+    return agree, dict(_build.LAUNCHES)
+
+
+@pytest.mark.parametrize("kw", [dict(bilateral_subsample=1),
+                                dict(bilateral_subsample=4,
+                                     bilateral_mode="nystrom")])
+def test_k8_crf_on_card_matches_cpu(cuda, kw):
+    """The exact and Nystrom CRFs on the card (K8; Nystrom's K_AA from K5
+    in f32) against the CPU (plain versions) on a textured scene."""
+    agree, launches = _crf_card_vs_cpu(cuda, *_crf_scene(9, 48, 4, 4), **kw)
+    nystrom = kw.get("bilateral_mode") == "nystrom"
+    assert launches["gaussian_kernel_matmul"] == \
+        (2 if nystrom else 1) * (CRFConfig().num_iters + 1)
+    assert launches["gaussian_kernel_materialize"] == int(nystrom)
+    assert agree > 0.99, agree
+
+
+@pytest.mark.parametrize("size,c", [(64, 33), (40, 4)])
+def test_general_loop_crf_on_card_matches_cpu(cuda, size, c):
+    """The general mean-field loop on the card (K5's uint8 kernel cast to
+    f32, the state rounded to bf16, torch.matmul) against the CPU (f32
+    products): 2 x 33 = 66 state rows, beyond K6's 64, and N = 1600, not a
+    multiple of 128. K5 launches once, K6 and K8 never."""
+    agree, launches = _crf_card_vs_cpu(cuda, *_crf_scene(10, size, c, 12))
+    assert launches["gaussian_kernel_materialize"] == 1
+    assert launches["crf_fused_iteration"] == 0
+    assert launches["gaussian_kernel_matmul"] == 0
+    assert agree > 0.99, agree
+
+
 def test_crf_on_card_matches_cpu(cuda):
     """The whole default CRF branch on the card (K5 + K6, bf16 products)
     against the CPU (plain versions, f32 products) on a textured scene."""
-    rng = np.random.RandomState(4)
-    h = w = 64
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
-    image = np.stack([120 + 60 * np.sin(xx / 9.0), 100 + 50 * np.cos(yy / 7.0),
-                      90 + 45 * np.sin((xx + yy) / 11.0)], -1)
-    image = np.clip(image + rng.randn(h, w, 3) * 12, 0, 255).astype(np.float32)
-    logits = rng.randn(2, 4, h, w).astype(np.float32) * 0.5
-    logits[:, 0, : h // 2] += 0.8
-    logits[:, 1, h // 2:] += 0.8
-    labels = {}
-    for dev in ("cpu", cuda):
-        labels[str(dev)] = crf.mean_field_crf_variants(
-            torch.from_numpy(logits).to(dev), torch.from_numpy(image).to(dev),
-            CRFConfig(), xy_scale=(0.4, 0.5)).cpu()
-    agree = (labels["cpu"] == labels["cuda"]).float().mean().item()
+    agree, launches = _crf_card_vs_cpu(cuda, *_crf_scene(4, 64, 4, 12))
+    assert launches["crf_fused_iteration"] == CRFConfig().num_iters
     assert agree > 0.99, agree
 
 

@@ -149,10 +149,16 @@ def test_init_is_seeded():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port stands alone: no ``jax`` and no
-    ``pnp_ovss_tpu`` import anywhere in it."""
+    ``pnp_ovss_tpu`` import anywhere in it, nor in the scripts that drive
+    it on the card (``chip_smoke.py`` and the port's profiling scripts)."""
     files = sorted(PKG.rglob("*.py"))
     assert len(files) > 10
-    for path in files:
+    repo = PKG.parent
+    card_scripts = [repo / "chip_smoke.py",
+                    repo / "scripts" / "profile_torch_port.py",
+                    repo / "scripts" / "kernel_ablation.py"]
+    assert all(p.exists() for p in card_scripts)
+    for path in files + card_scripts:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]

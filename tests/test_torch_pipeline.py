@@ -6,9 +6,11 @@ versions of every kernel) and the JAX package's runner with its Pallas
 kernels in interpret mode (``attn_impl="pallas"``,
 ``bilateral_impl="pallas"``, unfused ViT block via ``PNP_VIT_FUSED=0``;
 the port's ``vit_fused=False``).
-The postprocess is the default blur + strided s=4 CRF at bucket 32. The
-bars are tests/test_golden.py's: map sums within rtol 1e-3 and more than
-99.5% of labels equal (top-k and threshold ties may flip a few).
+Each test runs twice, over the postprocess (blur + 10-iteration CRF at
+bucket 32): the default strided s=4 CRF (K5, K6) and the exact s=1 CRF
+(K8, with the JAX runner's K8 in interpret mode). The bars are
+tests/test_golden.py's: map sums within rtol 1e-3 and more than 99.5% of
+labels equal (top-k and threshold ties may flip a few).
 """
 
 import dataclasses
@@ -30,18 +32,22 @@ NMS = ["dog", "cat", "grass", "sky"]
 B, BUCKET = 4, 32
 
 
-def _tiny(mod):
+def _tiny(mod, subsample):
     cfg = mod.PipelineConfig.tiny()
     return dataclasses.replace(
         cfg, batch_size=B,
-        attribution=dataclasses.replace(cfg.attribution, layer=1, head=1))
+        attribution=dataclasses.replace(cfg.attribution, layer=1, head=1),
+        postprocess=dataclasses.replace(cfg.postprocess,
+                                        bilateral_subsample=subsample))
 
 
-@pytest.fixture(scope="module")
-def results():
+@pytest.fixture(scope="module", params=[4, 1],
+                ids=["strided_s4", "exact_s1"])
+def results(request):
     mp = pytest.MonkeyPatch()
     mp.setenv("PNP_VIT_FUSED", "0")
-    jcfg, pcfg = _tiny(jcfg_mod), _tiny(pcfg_mod)
+    jcfg = _tiny(jcfg_mod, request.param)
+    pcfg = _tiny(pcfg_mod, request.param)
     params = init_params(jax.random.PRNGKey(0), jcfg.model,
                          capture_layers=(0,))
     tok = WordPieceTokenizer.toy(["a", "picture", "of"] + NMS)
