@@ -15,17 +15,22 @@ Phases, each of which exits non-zero on failure:
    ``F.scaled_dot_product_attention``), and for the fused ViT kernels
    the port's unfused route (LayerNorm, cuBLAS products, ``F.gelu``,
    K2), which the fused path never calls; K8 at the exact CRF's shape
-   and at both Nystrom shapes;
+   and at both Nystrom shapes; K7 at both sequence-parallel chunk shapes
+   (sp = 2 at 336 and 768 px), bit-equal to K2's rows over the whole
+   sequence; K9 on [B, H, S, D] views at four shapes;
 4. reference: each branch of the CRF alone on the card against the CPU
    on one seeded scene (strided s=4 through K5 + K6, the general loop on
    K5's kernel for 66 state rows and for N = 1600, exact through K8,
    Nystrom through K5 + K8); then narrow configurations of the whole
    pipeline on the card against the same weights and inputs on the CPU
    (plain versions): the fused ViT at 192 px (K1, K2, K3) and 384 px (K1,
-   K4, K3), and the unfused ViT at 192 px, each with the strided s=4 CRF
-   (K5, K6); then the fused ViT at 192 px with the exact CRF (K8), with
-   the Nystrom CRF at s=4 (K5, K8) and with 32 classes, whose 66 state
-   rows take the general loop (K5);
+   K4, K3), and the unfused ViT at 192 px with 2 heads (K2) and with 3
+   heads (K9), each with the strided s=4 CRF (K5, K6); then the fused ViT
+   at 192 px with the exact CRF (K8), with the Nystrom CRF at s=4 (K5,
+   K8) and with 32 classes, whose 66 state rows take the general loop
+   (K5); then the fused 192 px pipeline sequence-parallel over two
+   spawned ranks that share the card through gloo (K1, K7, K3), against
+   the same two ranks on the CPU and the card's unsharded run;
 5. pipeline: four full-width runs of ``SegmentationRunner`` with random
    weights from a seeded ``torch.Generator`` (BLIP-ITM-Large, 4 drop
    rounds, bucket 192, blur + 10-iteration CRF): the reference default
@@ -33,7 +38,10 @@ Phases, each of which exits non-zero on failure:
    (768 px, batch 12, fused ViT through K4), the unfused ViT at 336 px,
    and the reference default with the exact CRF (s=1, K8). Each checks
    the launch count of every kernel over its timed batches, labels in
-   range and maps finite, and reports img/s.
+   range and maps finite, and reports img/s. Then the reference default
+   sequence-parallel over two ranks on the card (K1, K7, K3), against the
+   unsharded run's labels, and one 768 px sequence-parallel encode
+   against the unsharded encode.
 
 The last four lines of output are the runs' img/s as JSON, one JSON
 object with every kernel's numbers, the card's name and power limit, and
@@ -44,6 +52,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import socket
 import subprocess
 import sys
 import time
@@ -55,6 +65,11 @@ PIPELINE_BATCHES = 3  # timed, double-buffered, after one warm-up batch
 BUCKET = 192  # the CRF bucket of the reference default (bench.py)
 LEG_768 = (768, 12)  # bench.py's second leg: image size, batch
 GT_SIZES = ((500, 375), (375, 500))  # VOC-like (H, W), alternating
+# The sequence-parallel runs: ranks (spawned; they share the one card
+# through gloo, since NCCL refuses two ranks on one device) and timed
+# batches of the full-width run, whose wall time is gloo's transport.
+SP = 2
+SP_BATCHES = 1
 
 
 def card_line() -> str:
@@ -518,6 +533,132 @@ def fused_vit_kernels(cfg, cfg768):
     return rows
 
 
+# K7 and K9 run K2's kernel and math: K2's tolerance against the plain
+# version (bf16 P in the P.V product, a bf16 output).
+TOL_FLASH = 5e-3
+
+
+def xlen_and_bhsd_kernels(cfg, cfg768):
+    """Phase 3 for K7 and K9. K7 at the sequence-parallel chunk shapes of
+    sp = 2: the local q rows of each rank over the gathered K/V, whose
+    last chunk carries the padding at 768 px (2305 tokens in 2 x 1153 rows,
+    ``true_kv_len`` 2305), each chunk against its plain version and bit
+    for bit against K2's rows over the whole sequence. K9 on [B, H, S, D]
+    views of one qkv array, as the unfused ViT passes them, at the ViT-L
+    shapes of both legs, a head dim of 128, and the 3-head narrow run's
+    shape (S = 145). Returns {kernel name: row of the kernels line}, at
+    the 336 px shapes."""
+    import torch
+    from torch.nn import functional as F
+
+    from pnp_ovss_tpu_torch.ops import flash_attention
+    from pnp_ovss_tpu_torch.ops.attention import mha_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    vit = cfg.model.vit
+    h, d = vit.num_heads, vit.head_dim
+    hd = h * d
+    k7 = []
+    for label, c in (("336 px", cfg), ("768 px", cfg768)):
+        b, s = c.batch_size, c.model.vit.seq_len
+        chunk = -(-s // SP)
+        qkv = torch.randn((b, chunk * SP, 3 * hd), generator=gen,
+                          device=dev).to(torch.bfloat16)
+        kv = qkv[..., hd:].contiguous()  # as gathered from the ranks
+        k, v = kv[..., :hd], kv[..., hd:]
+        whole = flash_attention.flash_mha_flat(qkv[..., :hd], k, v,
+                                               num_heads=h, true_len=s)
+        err = 0.0
+        for r in range(SP):
+            q = qkv[:, r * chunk:(r + 1) * chunk].contiguous()[..., :hd]
+            out = flash_attention.flash_mha_flat_xlen(q, k, v, num_heads=h,
+                                                      true_kv_len=s)
+            rows = min(chunk, s - r * chunk)  # the rest is padding
+            if not torch.equal(out[:, :rows],
+                               whole[:, r * chunk:r * chunk + rows]):
+                raise SystemExit(f"FAIL: flash_mha_flat_xlen {label} rank "
+                                 f"{r} differs from K2's rows")
+            ref = flash_attention.attention_plain(
+                q, k, v, num_heads=h, true_len=s, out_dtype=torch.float32)
+            err = max(err, (out[:, :rows].float() - ref[:, :rows]).abs()
+                      .max().item())
+        print(f"  flash_mha_flat_xlen {label} B={b} Sq={chunk} Skv="
+              f"{chunk * SP} true_kv_len={s}: both chunks bit-equal to K2's "
+              "rows", flush=True)
+        check(f"flash_mha_flat_xlen {label} vs plain", err, TOL_FLASH)
+        del whole, out, ref
+        torch.cuda.synchronize()
+        # Rank 0's launch: its q rows, all true_kv_len keys read once.
+        q = qkv[:, :chunk].contiguous()[..., :hd]
+        qh = q.unflatten(-1, (h, d)).transpose(1, 2)
+        kh, vh = (t[:, :s].unflatten(-1, (h, d)).transpose(1, 2)
+                  for t in (k, v))
+        nbytes = 2 * (2 * b * chunk * hd + 2 * b * s * hd)
+        bms, by = bound_ms(nbytes, 4.0 * b * h * chunk * s * d, BF16_FLOPS)
+        k7.append(dict(
+            name="flash_mha_flat_xlen", route="cuda",
+            source="pnp_ovss_tpu_torch/csrc/flash_attention.cu",
+            replaces="pnp_ovss_tpu/ops/flash_attention.py:636",
+            max_abs_err=err,
+            ms=time_ms(lambda: flash_attention.flash_mha_flat_xlen(
+                q, k, v, num_heads=h, true_kv_len=s), 20),
+            plain_ms=time_ms(lambda: flash_attention.attention_plain(
+                q, k, v, num_heads=h, true_len=s,
+                out_dtype=torch.bfloat16), 3),
+            bound_ms=bms, bound_by=by,
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh), 20),
+            shape=f"{label} sp={SP} B={b} Sq={chunk} Skv={chunk * SP} "
+                  f"true_kv_len={s}"))
+        del qkv, kv, k, v, q
+    k9 = []
+    for label, b, hh, s, dd in (
+            ("336 px", cfg.batch_size, h, vit.seq_len, d),
+            ("768 px", cfg768.batch_size, h, cfg768.model.vit.seq_len, d),
+            ("768 px D=128", cfg768.batch_size, hd // 128,
+             cfg768.model.vit.seq_len, 128),
+            ("narrow 3 heads", 4, 3, 145, 64)):
+        qkv = torch.randn((b, s, 3, hh, dd), generator=gen, device=dev) \
+            .to(torch.bfloat16)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)  # [B, H, S, D] views
+        out = flash_attention.flash_mha(q, k, v)
+        ref = mha_plain(q, k, v, out_dtype=torch.float32)
+        err = (out.float() - ref).abs().max().item()
+        check(f"flash_mha {label} [{b}, {hh}, {s}, {dd}] vs plain", err,
+              TOL_FLASH)
+        del out, ref
+        torch.cuda.synchronize()
+        bms, by = bound_ms(4 * 2 * b * hh * s * dd,
+                           4.0 * b * hh * s * s * dd, BF16_FLOPS)
+        k9.append(dict(
+            name="flash_mha", route="cuda",
+            source="pnp_ovss_tpu_torch/csrc/flash_attention.cu",
+            replaces="pnp_ovss_tpu/ops/flash_attention.py:713",
+            max_abs_err=err,
+            ms=time_ms(lambda: flash_attention.flash_mha(q, k, v), 20),
+            plain_ms=time_ms(lambda: mha_plain(
+                q, k, v, out_dtype=torch.bfloat16), 3),
+            bound_ms=bms, bound_by=by,
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v), 20),
+            shape=f"{label} [{b}, {hh}, {s}, {dd}]"))
+        del qkv, q, k, v
+    rows = {}
+    for lines in (k7, k9):
+        for row in lines:
+            print(f"  {row['name']} {row['shape']}: {row['ms']:.4f} ms (plain "
+                  f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} by "
+                  f"{row['bound_by']}, SDPA {row['library_ms']:.4f})",
+                  flush=True)
+        row = dict(lines[0])
+        row["shapes"] = [{k: r[k] for k in ("shape", "ms", "plain_ms",
+                                            "bound_ms", "library_ms",
+                                            "max_abs_err")} for r in lines]
+        rows[row["name"]] = row
+    return rows
+
+
 def synthetic_batch(cfg, batch: int, bucket: int, seed: int = 0):
     """uint8 images, captions, bucket RGB and VOC-like GT sizes, as
     bench.py builds them."""
@@ -544,10 +685,12 @@ def synthetic_batch(cfg, batch: int, bucket: int, seed: int = 0):
     return images, cap, rgb, gt_sizes
 
 
-def narrow_config(image_size: int):
-    """A narrow bf16 pipeline config (ViT 2 layers of width 128, 2 heads
-    of 64; bucket-64 CRF) whose ViT the fused kernels take: 192 px gives
-    145 tokens (one 512-key block: K1, K2, K3), 384 px 577 (K1, K4, K3)."""
+def narrow_config(image_size: int, hidden_size: int = 128,
+                  num_heads: int = 2):
+    """A narrow bf16 pipeline config (ViT 2 layers, by default of width
+    128 with 2 heads of 64; bucket-64 CRF), whose ViT the fused kernels
+    take: 192 px gives 145 tokens (one 512-key block: K1, K2, K3), 384 px
+    577 (K1, K4, K3). 3 heads of 64 take the unfused block's K9."""
     from pnp_ovss_tpu_torch.config import (
         ModelConfig, PipelineConfig, ViTConfig,
     )
@@ -556,15 +699,17 @@ def narrow_config(image_size: int):
     return dataclasses.replace(
         cfg, batch_size=4,
         model=ModelConfig(
-            vit=ViTConfig(image_size=image_size, hidden_size=128,
-                          num_layers=2, num_heads=2),
-            bert=dataclasses.replace(cfg.model.bert, encoder_width=128,
+            vit=ViTConfig(image_size=image_size, hidden_size=hidden_size,
+                          num_layers=2, num_heads=num_heads),
+            bert=dataclasses.replace(cfg.model.bert,
+                                     encoder_width=hidden_size,
                                      dtype="bfloat16"),
             max_text_len=16),
         attribution=dataclasses.replace(cfg.attribution, layer=1, head=1))
 
 
 _VIT_336 = ("ln_matmul", "flash_mha_flat_qkv", "ln_mlp_residual")
+_VIT_SP = ("ln_matmul", "flash_mha_flat_xlen", "ln_mlp_residual")
 _K5, _K8 = "gaussian_kernel_materialize", "gaussian_kernel_matmul"
 _CRF_S4 = (_K5, "crf_fused_iteration")
 
@@ -662,59 +807,92 @@ NARROW_RUNS = (
     # loop runs on K5's kernel. Seeded readings: 0.0255, 0.9749 (r0),
     # 0.9899 (agg)
     (192, True, dict(max_classes=32), _VIT_336 + (_K5,), 0.04, 0.96),
+    # 3 heads of 64 (width 192): the unfused block sends attention to K9
+    # through ``mha(impl="flash")``, never to K2. Seeded readings: 0.0139,
+    # 0.9957 (r0), 0.9816 (agg)
+    (192, False, dict(vit=dict(hidden_size=192, num_heads=3)),
+     ("flash_mha",) + _CRF_S4, 0.021, 0.972),
 )
 
 
-def reference_check(image_size: int, vit_fused: bool, settings: dict,
-                    kernels, max_rel, min_agree):
-    """Phase 4: a narrow configuration on the card against the CPU with
-    the same weights and inputs. Phase 3 holds each kernel alone; this
-    holds the wiring around them on the card (uint8 upload, strided views
-    into the kernels, bf16 CRF products, the stream order of
-    submit/result) to the plain path."""
+def summary(res) -> dict:
+    """What the card-vs-CPU and rank-vs-rank checks read of a batch
+    result: labels, round-0 map sums, finite maps."""
     import numpy as np
 
+    return dict(labels_r0=res.labels_r0, labels_agg=res.labels_agg,
+                sums_r0=res.maps_r0.sum((2, 3)),
+                finite=bool(np.isfinite(res.maps_r0).all()
+                            and np.isfinite(res.maps_agg).all()))
+
+
+def hold(name: str, a: dict, b: dict, max_rel: float,
+         min_agree: float) -> None:
+    """Fail unless both runs' maps (``summary``s) are finite and they
+    agree within the bars: the max relative difference of the round-0
+    map sums, the least share of equal labels r0 and agg."""
+    import numpy as np
+
+    if not (a["finite"] and b["finite"]):
+        raise SystemExit(f"FAIL: {name}: maps not finite")
+    rel = np.abs(a["sums_r0"] - b["sums_r0"]).max() / max(
+        np.abs(b["sums_r0"]).max(), 1e-9)
+    r0 = (a["labels_r0"] == b["labels_r0"]).mean()
+    agg = (a["labels_agg"] == b["labels_agg"]).mean()
+    print(f"  {name}: round-0 map sums rel diff {rel:.4g} (bar {max_rel:g}),"
+          f" labels equal r0 {r0:.4f} agg {agg:.4f} (bar {min_agree:g})",
+          flush=True)
+    if rel > max_rel or r0 < min_agree or agg < min_agree:
+        raise SystemExit(f"FAIL: {name} disagree")
+
+
+def narrow_run(cfg, device: str, vit_fused: bool = True, sp_group=None):
+    """One batch of the narrow pipeline (weights drawn on the card from
+    seed 1, inputs from seed 1) on ``device``: its ``summary`` and the
+    kernel launches it made."""
     from pnp_ovss_tpu_torch.models.blip_itm import init_blip_itm
     from pnp_ovss_tpu_torch.ops import _build
     from pnp_ovss_tpu_torch.pipeline.runner import SegmentationRunner
 
-    cfg = narrow_config(image_size)
+    images, cap, rgb, gt = synthetic_batch(cfg, 4, 64, seed=1)
+    model = init_blip_itm(cfg.model, capture_layer=0, seed=1,
+                          device="cuda", vit_fused=vit_fused).to(device)
+    runner = SegmentationRunner(
+        cfg, model, device=device, bucket_size=64,
+        encode_parallel=None if sp_group is None else "sp",
+        sp_group=sp_group)
+    _build.reset_launch_counts()
+    res = runner.run_batch(images, cap, rgb, return_maps=True, gt_sizes=gt)
+    return summary(res), dict(_build.LAUNCHES)
+
+
+def reference_check(image_size: int, vit_fused: bool, settings: dict,
+                    kernels, max_rel, min_agree) -> dict:
+    """Phase 4: a narrow configuration on the card against the CPU with
+    the same weights and inputs. Phase 3 holds each kernel alone; this
+    holds the wiring around them on the card (uint8 upload, strided views
+    into the kernels, bf16 CRF products, the stream order of
+    submit/result) to the plain path. Returns the card run's launches."""
+    cfg = narrow_config(image_size, **settings.get("vit", {}))
     post = settings.get("postprocess", {})
     cfg = dataclasses.replace(
         cfg, postprocess=dataclasses.replace(cfg.postprocess, **post),
-        **{k: v for k, v in settings.items() if k != "postprocess"})
-    images, cap, rgb, gt = synthetic_batch(cfg, 4, 64, seed=1)
+        **{k: v for k, v in settings.items()
+           if k not in ("postprocess", "vit")})
     name = (f"{image_size} px {'fused' if vit_fused else 'unfused'} ViT"
+            + "".join(f", {k}={v}" for k, v in settings.get("vit",
+                                                              {}).items())
             + "".join(f", {k}={v}" for k, v in post.items())
             + "".join(f", {k}={v}" for k, v in settings.items()
-                      if k != "postprocess"))
-    out = {}
-    for device in ("cuda", "cpu"):
-        model = init_blip_itm(cfg.model, capture_layer=0, seed=1,
-                              device="cuda", vit_fused=vit_fused).to(device)
-        runner = SegmentationRunner(cfg, model, device=device, bucket_size=64)
-        _build.reset_launch_counts()
-        out[device] = runner.run_batch(images, cap, rgb, return_maps=True,
-                                       gt_sizes=gt)
-        if device == "cuda":
-            counts = launched_exactly(f"narrow {name}", kernels)
-    g, c = out["cuda"], out["cpu"]
-    for res in (g, c):
-        if not (np.isfinite(res.maps_agg).all()
-                and np.isfinite(res.maps_r0).all()):
-            raise SystemExit(f"FAIL: narrow {name} maps not finite")
-    sums_g, sums_c = g.maps_r0.sum((2, 3)), c.maps_r0.sum((2, 3))
-    rel = np.abs(sums_g - sums_c).max() / max(np.abs(sums_c).max(), 1e-9)
-    agree_r0 = float((g.labels_r0 == c.labels_r0).mean())
-    agree_agg = float((g.labels_agg == c.labels_agg).mean())
-    print(f"  narrow {name} card vs CPU: round-0 map sums rel diff "
-          f"{rel:.4g} (bar {max_rel:g}), labels equal r0 {agree_r0:.4f} agg "
-          f"{agree_agg:.4f} (bar {min_agree:g}); card launches {counts}",
-          flush=True)
+                      if k not in ("postprocess", "vit")))
+    card, counts = narrow_run(cfg, "cuda", vit_fused)
+    launched_exactly(f"narrow {name}", kernels)
+    cpu, _ = narrow_run(cfg, "cpu", vit_fused)
     # Both sides compute in bf16 with different summation orders, and the
     # card's CRF products are bf16 where the CPU's are f32.
-    if rel > max_rel or agree_r0 < min_agree or agree_agg < min_agree:
-        raise SystemExit(f"FAIL: narrow {name} disagrees with the CPU run")
+    hold(f"narrow {name} card vs CPU", card, cpu, max_rel, min_agree)
+    print(f"    card launches {counts}", flush=True)
+    return counts
 
 
 def full_config(image_size: int = 336):
@@ -733,11 +911,12 @@ def full_config(image_size: int = 336):
 
 
 def pipeline_setup(seed: int = 0, *, image_size: int = 336,
-                   vit_fused: bool = True, post=None):
+                   vit_fused: bool = True, post=None, sp_group=None):
     """A full-width runner on the card with random weights from ``seed``
     (by default the reference default: 336 px, batch 35, fused ViT,
-    strided s=4 CRF; ``post`` replaces postprocess settings), and one
-    batch of synthetic inputs (images, captions, bucket RGB, GT sizes)."""
+    strided s=4 CRF; ``post`` replaces postprocess settings; with
+    ``sp_group`` the encode is sequence-parallel over it), and one batch
+    of synthetic inputs (images, captions, bucket RGB, GT sizes)."""
     from pnp_ovss_tpu_torch.models.blip_itm import init_blip_itm
     from pnp_ovss_tpu_torch.pipeline.runner import SegmentationRunner
 
@@ -747,8 +926,10 @@ def pipeline_setup(seed: int = 0, *, image_size: int = 336,
     model = init_blip_itm(cfg.model,
                           capture_layer=cfg.attribution.layer - 1, seed=seed,
                           device="cuda", vit_fused=vit_fused)
-    runner = SegmentationRunner(cfg, model, device="cuda",
-                                bucket_size=BUCKET)
+    runner = SegmentationRunner(
+        cfg, model, device="cuda", bucket_size=BUCKET,
+        encode_parallel=None if sp_group is None else "sp",
+        sp_group=sp_group)
     return cfg, runner, synthetic_batch(cfg, cfg.batch_size, BUCKET, seed)
 
 
@@ -780,12 +961,13 @@ FULL_RUNS = (
 )
 
 
-def expected_launches(cfg, vit_kernels) -> dict:
-    """Launches per batch of every kernel on one run's path. The CRF runs
-    once per image: the materialised strided CRF launches K5 once and K6
-    once per iteration; the exact and unmaterialised CRFs launch K8 once
-    per message (the degree, then each iteration); Nystrom launches K5
-    once (the anchor Gram matrix) and K8 twice per message."""
+def expected_launches(cfg, vit_kernels, bucket: int = BUCKET) -> dict:
+    """Launches per batch of every kernel on one run's path. The ViT
+    kernels launch once per layer and drop round. The CRF runs once per
+    image: the materialised strided CRF launches K5 once and K6 once per
+    iteration; the exact and unmaterialised CRFs launch K8 once per
+    message (the degree, then each iteration); Nystrom launches K5 once
+    (the anchor Gram matrix) and K8 twice per message."""
     from pnp_ovss_tpu_torch.ops import _build
     from pnp_ovss_tpu_torch.ops.crf import _MATERIALIZE_LIMIT
 
@@ -795,7 +977,7 @@ def expected_launches(cfg, vit_kernels) -> dict:
     pp, b = cfg.postprocess, cfg.batch_size
     s, iters = pp.bilateral_subsample, pp.crf.num_iters
     nystrom = pp.bilateral_mode == "nystrom" and s > 1
-    n, m = BUCKET * BUCKET, (-(-BUCKET // s)) ** 2
+    n, m = bucket * bucket, (-(-bucket // s)) ** 2
     if not nystrom and s > 1 and n * m <= _MATERIALIZE_LIMIT:
         if 2 * (cfg.max_classes + 1) > 64:
             raise ValueError("a full-width run takes the fused CRF iteration")
@@ -811,7 +993,8 @@ def run_pipeline(cfg, runner, inputs, per_batch: dict,
                  n_batches: int = PIPELINE_BATCHES):
     """Phase 5, one run: a checked warm-up batch, then ``n_batches`` timed
     batches with the launch counts set to 0 just before and read just
-    after. Returns (launch counts of the timed batches, img/s)."""
+    after. Returns (launch counts of the timed batches, img/s, the
+    warm-up batch's ``summary``)."""
     import numpy as np
     import torch
 
@@ -849,7 +1032,178 @@ def run_pipeline(cfg, runner, inputs, per_batch: dict,
                              f"{want * n_batches}")
     print(f"  launches over {n_batches} batches: {counts} "
           f"(per batch {per_batch})", flush=True)
-    return counts, batch * n_batches / dt
+    return counts, batch * n_batches / dt, summary(res)
+
+
+def sp_narrow(sp) -> dict:
+    """Phase 4 on one rank: the narrow 192 px fused pipeline split over
+    the group, on the card (with its launches) and on the CPU."""
+    cfg = narrow_config(192)
+    card, counts = narrow_run(cfg, "cuda", sp_group=sp)
+    cpu, _ = narrow_run(cfg, "cpu", sp_group=sp)
+    return dict(cuda=card, cpu=cpu, launches=counts)
+
+
+def sp_full(sp) -> dict:
+    """Phase 5 on one rank: the reference default split over the group,
+    through ``run_pipeline`` (a checked warm-up batch, then timed batches
+    whose launches it asserts)."""
+    cfg, runner, inputs = pipeline_setup(sp_group=sp)
+    counts, img_s, res = run_pipeline(cfg, runner, inputs,
+                                      expected_launches(cfg, _VIT_SP),
+                                      SP_BATCHES)
+    return dict(launches=counts, img_s=img_s, **res)
+
+
+def sp_encode_768(sp) -> dict:
+    """Phase 5 on one rank: one sequence-parallel encode of bench.py's
+    768 px leg with its launches and wall time; rank 0 also runs the
+    unsharded encode (K4) and returns the difference."""
+    import torch
+
+    from pnp_ovss_tpu_torch.models.blip_itm import init_blip_itm
+    from pnp_ovss_tpu_torch.ops import _build
+    from pnp_ovss_tpu_torch.parallel.sequence import encode_images_sp
+
+    torch.cuda.empty_cache()
+    cfg = full_config(LEG_768[0])
+    model = init_blip_itm(cfg.model, capture_layer=cfg.attribution.layer - 1,
+                          device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    size = cfg.model.vit.image_size
+    images = torch.randn((cfg.batch_size, size, size, 3), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    emb = encode_images_sp(model.visual_encoder, images, sp)
+    torch.cuda.synchronize()
+    out = dict(seconds=time.perf_counter() - t0, launches=dict(_build.LAUNCHES),
+               shape=tuple(emb.shape), finite=bool(torch.isfinite(emb).all()))
+    if sp.rank == 0:
+        ref = model.encode_image(images).float()
+        diff = (emb.float() - ref).abs()
+        out.update(max_abs=diff.max().item(), mean_abs=diff.mean().item(),
+                   ref_max=ref.abs().max().item())
+    return out
+
+
+SP_JOBS = {"narrow": sp_narrow, "full": sp_full, "encode_768": sp_encode_768}
+
+
+def sp_rank(rank: int, init_method: str, jobs, out_dir: str) -> None:
+    """One spawned rank of the sequence-parallel runs: joins the group
+    (both ranks on the one card, so gloo), runs ``jobs`` of ``SP_JOBS`` in
+    order and saves their results for the parent."""
+    import torch
+
+    from pnp_ovss_tpu_torch.parallel.mesh import make_mesh_2d
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sp = make_mesh_2d(SP, ["cuda:0"] * SP, rank=rank, init_method=init_method)
+    try:
+        out = {job: SP_JOBS[job](sp) for job in jobs}
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def run_sp(jobs) -> list:
+    """``jobs`` on ``SP`` ranks spawned with the spawn start method; a
+    rank that fails makes this raise. Returns each rank's {job: result}."""
+    import torch
+    from torch import multiprocessing as mp
+
+    from pnp_ovss_tpu_torch.ops import _build
+
+    out_dir = _build.BUILD_DIR.parent / "sp_ranks"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for r in range(SP):
+        (out_dir / f"rank{r}.pt").unlink(missing_ok=True)
+    with socket.socket() as sock:  # a free port for the rendezvous
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    mp.start_processes(sp_rank, args=(f"tcp://localhost:{port}", jobs,
+                                      str(out_dir)),
+                       nprocs=SP, start_method="spawn")
+    return [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
+            for r in range(SP)]
+
+
+# Bars of the sequence-parallel runs (max relative difference of the
+# round-0 map sums, least share of equal labels). Against the CPU, the
+# 192 px fused run's bars (seeded reading 0.0255, 0.9749 / 0.9897, as
+# that run's). On the card the sharded runs equal the unsharded ones bit
+# for bit, and rank 1 equals rank 0 (seeded readings 0, 1.0, 1.0 at 192
+# and 336 px, max |diff| 0 of the 768 px encode): K7's rows are K2's,
+# K1 and K3 are row-local, and cuBLAS sums the proj in the same order at
+# either row count; so the bars are equality.
+SP_VS_CPU = (0.04, 0.96)
+SP_EXACT = (0.0, 1.0)
+
+
+def sp_narrow_check(ranks) -> None:
+    """Phase 4: each rank launched exactly K1 = K3 = K7 = layers x
+    rounds, K5 and K6 by the CRF, and nothing else; rank 0's card run
+    agrees with the ranks' CPU run and equals the card's unsharded run,
+    and rank 1 equals rank 0."""
+    cfg = narrow_config(192)
+    want = expected_launches(cfg, _VIT_SP, bucket=64)
+    for r, out in enumerate(ranks):
+        counts = out["narrow"]["launches"]
+        if counts != want:
+            raise SystemExit(f"FAIL: narrow SP rank {r} launched {counts}, "
+                             f"want {want}")
+    print(f"  narrow 192 px fused SP, {SP} ranks on one card (gloo): "
+          f"launches per rank {want}", flush=True)
+    unsharded, _ = narrow_run(cfg, "cuda")
+    r0 = ranks[0]["narrow"]
+    hold("narrow SP rank 0 card vs the ranks on the CPU", r0["cuda"],
+         r0["cpu"], *SP_VS_CPU)
+    hold("narrow SP rank 0 vs the card's unsharded run", r0["cuda"],
+         unsharded, *SP_EXACT)
+    hold("narrow SP rank 1 vs rank 0 on the card",
+         ranks[1]["narrow"]["cuda"], r0["cuda"], *SP_EXACT)
+
+
+def sp_full_check(ranks, unsharded: dict, card: str) -> dict:
+    """Phase 5: the reference default over ``SP`` ranks (each asserted
+    its launches in ``run_pipeline``) against the unsharded run's warm-up
+    labels and map sums, and the 768 px SP encode's launches and its
+    equality with the unsharded encode (K4). Returns rank 0's row of the
+    pipeline line."""
+    for r, out in enumerate(ranks):
+        print(f"  336 px fused SP rank {r}: {out['full']['img_s']:.3f} img/s"
+              f" over {SP_BATCHES} batch (gloo transport on one card, no "
+              f"speed result) on {card}", flush=True)
+    hold("336 px fused SP rank 0 vs the unsharded run", ranks[0]["full"],
+         unsharded, *SP_EXACT)
+    hold("336 px fused SP rank 1 vs rank 0", ranks[1]["full"],
+         ranks[0]["full"], *SP_EXACT)
+    cfg = full_config(LEG_768[0])
+    want = {k: 0 for k in ranks[0]["encode_768"]["launches"]}
+    for name in _VIT_SP:
+        want[name] = cfg.model.vit.num_layers
+    for r, out in enumerate(ranks):
+        enc = out["encode_768"]
+        if enc["launches"] != want or not enc["finite"] or enc["shape"] != (
+                cfg.batch_size, cfg.model.vit.seq_len, cfg.model.vit.hidden_size):
+            raise SystemExit(f"FAIL: 768 px SP encode rank {r}: launches "
+                             f"{enc['launches']} (want {want}), shape "
+                             f"{enc['shape']}, finite {enc['finite']}")
+        print(f"  768 px SP encode rank {r}: {enc['seconds']:.3f} s (gloo "
+              f"transport on one card), launches {want}", flush=True)
+    enc = ranks[0]["encode_768"]
+    print(f"  768 px SP encode vs unsharded (K4): max |diff| "
+          f"{enc['max_abs']:.4g} at max |y| {enc['ref_max']:.4g}, mean "
+          f"|diff| {enc['mean_abs']:.4g} (bar: equal)", flush=True)
+    if enc["max_abs"] != 0:
+        raise SystemExit("FAIL: 768 px SP encode differs from the unsharded")
+    return dict(img_per_s=ranks[0]["full"]["img_s"],
+                batch=full_config(336).batch_size, timed_batches=SP_BATCHES,
+                note="gloo transport on one card, no speed result",
+                encode_768_s=enc["seconds"])
 
 
 def main() -> int:
@@ -879,41 +1233,58 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}", flush=True)
 
     cfg, cfg768 = full_config(336), full_config(LEG_768[0])
+    t0 = time.perf_counter()
     print("[3/5] kernels vs plain at the main paths' shapes", flush=True)
     rows = kernels_vs_plain(cfg)
     rows.update(fused_vit_kernels(cfg, cfg768))
     rows["gaussian_kernel_matmul"] = kernel_matmul_check(cfg)
+    rows.update(xlen_and_bhsd_kernels(cfg, cfg768))
+    print(f"  phase 3: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    t0 = time.perf_counter()
     print("[4/5] CRF branches and narrow pipelines, card vs CPU", flush=True)
     for args in CRF_BRANCHES:
         crf_branch_check(*args)
     for args in NARROW_RUNS:
-        reference_check(*args)
+        counts = reference_check(*args)
+        if "flash_mha" in args[3]:
+            k9_counts = counts  # the one run whose path takes K9
+    sp_narrow_check(run_sp(["narrow"]))
+    print(f"  phase 4: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    t0 = time.perf_counter()
     print("[5/5] full-width pipelines", flush=True)
-    runs = {}
+    # Launches of each run, in the order the kernels line reads them.
+    runs, summaries, launch_runs = {}, {}, {}
     for name, size, fused, vit_kernels, post in FULL_RUNS:
         run_cfg, runner, inputs = pipeline_setup(image_size=size,
                                                  vit_fused=fused, post=post)
         print(f"  {name}: batch {run_cfg.batch_size}, "
               f"{run_cfg.model.vit.seq_len} tokens", flush=True)
-        counts, img_s = run_pipeline(
+        counts, img_s, summaries[name] = run_pipeline(
             run_cfg, runner, inputs, expected_launches(run_cfg, vit_kernels))
         print(f"  {name}: {img_s:.3f} img/s on {card}", flush=True)
         runs[name] = dict(img_per_s=img_s, batch=run_cfg.batch_size,
-                          timed_batches=PIPELINE_BATCHES, launches=counts)
+                          timed_batches=PIPELINE_BATCHES)
+        launch_runs[name] = counts
         del runner
         torch.cuda.empty_cache()
+    print(f"  336 px fused SP: {SP} ranks on one card (gloo)", flush=True)
+    ranks = run_sp(["full", "encode_768"])
+    runs["336 px fused SP (rank 0)"] = sp_full_check(
+        ranks, summaries["336 px fused"], card)
+    launch_runs["336 px fused SP (rank 0)"] = ranks[0]["full"]["launches"]
+    launch_runs["192 px unfused 3 heads (narrow)"] = k9_counts
+    print(f"  phase 5: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # Launches of each kernel in the first run whose path takes it (K4:
-    # the 768 px run, K8: the exact CRF run), and in every run.
+    # the 768 px run, K8: the exact CRF run, K7: the SP run, K9: the
+    # 3-head narrow run), and in every run.
     for kname, row in rows.items():
-        by_run = {r: v["launches"][kname] for r, v in runs.items()}
+        by_run = {r: counts[kname] for r, counts in launch_runs.items()}
         row["launches"] = next((n for n in by_run.values() if n), 0)
         row["launches_by_run"] = by_run
-    print(json.dumps({"pipeline": {
-        r: {k: v[k] for k in ("img_per_s", "batch", "timed_batches")}
-        for r, v in runs.items()} | {"card": card}}))
+    print(json.dumps({"pipeline": runs | {"card": card}}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,15 +11,26 @@ NHWC. Two blocks with one parameter tree:
   (one 512-key block, e.g. 336 px) or attention + proj + residual in K4
   (longer sequences, e.g. 768 px), then LN2 + MLP + residual in K3;
 - ``ViTBlock``, the JAX package's unfused block (``PNP_VIT_FUSED=0``
-  there): LN1 -> qkv -> K2 -> proj -> LN2 -> MLP, the products plain
-  matmuls. It also serves configurations the fused kernels do not take.
+  there): LN1 -> qkv -> attention -> proj -> LN2 -> MLP, the products
+  plain matmuls, attention through K2 where the JAX package takes its flat
+  kernel (heads in pairs), else ``ops.attention.mha(impl="flash")`` (K9
+  for an odd head count, plain attention for small shapes). It also serves
+  configurations the fused kernels do not take.
+
+Sequence parallelism (``forward(images, sp=group)``, the JAX package's
+``sp_axis``): each rank keeps a contiguous chunk of the tokens, and every
+attention gathers K/V from the group's ranks and runs K7 on the local
+query rows.
 
 The JAX package pads the whole encode to its k-block schedule (a TPU tile
-rule); the port carries ``[B, S, D]`` as it is, and the kernels mask the
-ragged row tail and keys >= S themselves.
+rule); the port carries ``[B, S, D]`` as it is (under sequence
+parallelism padded to a multiple of the group size), and the kernels mask
+the ragged row tail and keys >= S themselves.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -31,19 +42,22 @@ from pnp_ovss_tpu_torch.ops import attention as attn_ops
 from pnp_ovss_tpu_torch.ops import vit_block
 from pnp_ovss_tpu_torch.ops.flash_attention import (
     flash_mha_flat_qkv,
+    flash_mha_flat_xlen,
     flash_mha_qkv_proj,
     flat_supported,
     proj_fold_enabled,
+    xlen_supported,
 )
+from pnp_ovss_tpu_torch.parallel.mesh import SequenceGroup
+
+_NEG_INF = -1e30
 
 
 def fused_path_supported(cfg: ViTConfig) -> bool:
     """True iff the fused kernels take this config: the JAX package's
-    shape conditions (its flat-attention rule, with heads in pairs as K4
-    takes them, and ``vit_block.supported``), without its environment
-    switch."""
-    return (flat_supported(cfg.seq_len, cfg.head_dim)
-            and cfg.num_heads % 2 == 0
+    shape conditions (its flat-attention rule, heads in pairs, and
+    ``vit_block.supported``), without its environment switch."""
+    return (flat_supported(cfg.seq_len, cfg.num_heads, cfg.head_dim)
             and vit_block.supported(
                 cfg.hidden_size, 3 * cfg.hidden_size,
                 mlp_hidden=int(cfg.hidden_size * cfg.mlp_ratio)))
@@ -67,6 +81,45 @@ def stem_from_patches(cfg: ViTConfig, patches: torch.Tensor,
     return torch.cat([cls, x], dim=1) + pos_embed.to(dtype)
 
 
+def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """[B, S, H*D] -> [B, H, S, D] (a view)."""
+    b, s, hd = x.shape
+    return x.reshape(b, s, num_heads, hd // num_heads).transpose(1, 2)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, S, D] -> [B, S, H*D]."""
+    b, h, s, d = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * d)
+
+
+def sp_attention(cfg: ViTConfig, qkv: torch.Tensor,
+                 sp: SequenceGroup) -> torch.Tensor:
+    """Sequence-parallel attention of this rank's query rows: ``qkv`` [B,
+    s, 3*H*D] of the local chunk; K/V gathered from every rank in token
+    order, keys >= ``cfg.seq_len`` (the padding of the last chunk)
+    masked. -> [B, s, H*D]."""
+    c = cfg
+    dtype = DTYPES[c.dtype]
+    b, s, _ = qkv.shape
+    hd = c.hidden_size
+    kv = sp.all_gather_tokens(qkv[..., hd:])  # [B, Skv, 2*H*D]
+    skv = kv.shape[1]
+    if xlen_supported(s, skv, c.num_heads, c.head_dim):
+        return flash_mha_flat_xlen(qkv[..., :hd], kv[..., :hd], kv[..., hd:],
+                                   num_heads=c.num_heads, out_dtype=dtype,
+                                   true_kv_len=c.seq_len)
+    # Small shapes: plain attention with a key mask; masked keys weigh
+    # exactly 0, as in the unsharded encode.
+    bias = torch.where(torch.arange(skv, device=qkv.device) < c.seq_len,
+                       0.0, _NEG_INF)
+    out = attn_ops.mha(_heads(qkv[..., :hd], c.num_heads),
+                       _heads(kv[..., :hd], c.num_heads),
+                       _heads(kv[..., hd:], c.num_heads), bias,
+                       out_dtype=dtype)
+    return _merge_heads(out)
+
+
 class ViTSelfAttention(nn.Module):
     def __init__(self, cfg: ViTConfig):
         super().__init__()
@@ -76,19 +129,21 @@ class ViTSelfAttention(nn.Module):
                              dtype=dtype)
         self.proj = nn.Linear(cfg.hidden_size, cfg.hidden_size, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                sp: Optional[SequenceGroup] = None) -> torch.Tensor:
         c = self.cfg
         dtype = DTYPES[c.dtype]
-        b, s, _ = x.shape
+        s = x.shape[1]
         qkv = self.qkv(x)
-        if flat_supported(s, c.head_dim):
+        if sp is not None:
+            out = sp_attention(c, qkv, sp)
+        elif flat_supported(s, c.num_heads, c.head_dim):
             out = flash_mha_flat_qkv(qkv, num_heads=c.num_heads,
                                      out_dtype=dtype)
         else:
-            q, k, v = qkv.reshape(b, s, 3, c.num_heads, c.head_dim) \
-                .permute(2, 0, 3, 1, 4)
-            out = attn_ops.mha(q, k, v, out_dtype=dtype)
-            out = out.transpose(1, 2).reshape(b, s, c.hidden_size)
+            q, k, v = (_heads(t, c.num_heads) for t in qkv.chunk(3, dim=-1))
+            out = _merge_heads(attn_ops.mha(q, k, v, impl="flash",
+                                            out_dtype=dtype))
         return self.proj(out)
 
 
@@ -104,8 +159,9 @@ class ViTBlock(nn.Module):
         self.mlp_fc1 = nn.Linear(cfg.hidden_size, mlp, dtype=dtype)
         self.mlp_fc2 = nn.Linear(mlp, cfg.hidden_size, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x))
+    def forward(self, x: torch.Tensor,
+                sp: Optional[SequenceGroup] = None) -> torch.Tensor:
+        x = x + self.attn(self.norm1(x), sp)
         h = F.gelu(self.mlp_fc1(self.norm2(x)))  # exact erf
         return x + self.mlp_fc2(h)
 
@@ -115,7 +171,8 @@ class ViTBlockFused(ViTBlock):
     (so ``from_jax_params`` and the seeded init see no difference), the
     kernels' value flow in the forward."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                sp: Optional[SequenceGroup] = None) -> torch.Tensor:
         c = self.cfg
         b, s, d = x.shape
         eps = c.layer_norm_eps
@@ -123,11 +180,12 @@ class ViTBlockFused(ViTBlock):
         qkv = vit_block.ln_matmul(
             x.reshape(b * s, d), self.norm1.weight, self.norm1.bias,
             attn.qkv.weight, attn.qkv.bias, eps=eps).reshape(b, s, 3 * d)
-        if proj_fold_enabled(s):
+        if sp is None and proj_fold_enabled(s):
             x = flash_mha_qkv_proj(qkv, x, attn.proj.weight, attn.proj.bias,
                                    num_heads=c.num_heads)
-        else:
-            out = flash_mha_flat_qkv(qkv, num_heads=c.num_heads)
+        else:  # under sp the JAX block never folds proj either
+            out = (flash_mha_flat_qkv(qkv, num_heads=c.num_heads)
+                   if sp is None else sp_attention(c, qkv, sp))
             # proj + residual as plain products, rounded where the
             # reference rounds: dot, + bias, + x.
             x = x + (F.linear(out, attn.proj.weight) + attn.proj.bias)
@@ -158,11 +216,24 @@ class VisionTransformer(nn.Module):
         self.norm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
                               DTYPES[cfg.dtype])
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor,
+                sp: Optional[SequenceGroup] = None) -> torch.Tensor:
+        """``sp``: encode sequence-parallel over this group. The images
+        are the same on every rank; the tokens, padded with zero rows to a
+        multiple of the group size, are cut into one contiguous chunk per
+        rank, the blocks run on this rank's chunk with keys >= seq_len
+        masked, and the chunks are gathered back, so that every rank
+        returns the whole encode (vit.py:405-456)."""
         c = self.cfg
         nchw = images.to(DTYPES[c.dtype]).permute(0, 3, 1, 2)
         patches = self.patch_embed(nchw).permute(0, 2, 3, 1)
         x = stem_from_patches(c, patches, self.cls_token, self.pos_embed)
+        if sp is not None:
+            chunk = -(-c.seq_len // sp.size)
+            x = F.pad(x, (0, 0, 0, chunk * sp.size - c.seq_len))
+            x = x[:, sp.rank * chunk:(sp.rank + 1) * chunk].contiguous()
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, sp)
+        if sp is not None:
+            x = sp.all_gather_tokens(x)[:, :c.seq_len]
         return self.norm(x)

@@ -32,8 +32,9 @@ BUILD_DIR = _PKG.parent / "build" / "cuda"
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SOURCES: Dict[str, Dict[str, list]] = {
     "flash_attention": {
-        "flash_mha_flat_bf16": [_P, _P, _P, _P] + [_L] * 8
-        + [_I, _I, _I, _I, _I, _F, _P],
+        "flash_mha_flat_bf16": [_P] * 4 + [_L] * 8 + [_I] * 5 + [_F, _P],
+        "flash_mha_xlen_bf16": [_P] * 4 + [_L] * 8 + [_I] * 6 + [_F, _P],
+        "flash_mha_bhsd_bf16": [_P] * 4 + [_L] * 12 + [_I] * 4 + [_F, _P],
     },
     "crf_materialize": {
         "gaussian_kernel_materialize": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -63,6 +64,8 @@ LAUNCHES: Dict[str, int] = {
     "flash_mha_flat_qkv": 0,
     "ln_mlp_residual": 0,
     "flash_mha_qkv_proj": 0,
+    "flash_mha_flat_xlen": 0,
+    "flash_mha": 0,
     "gaussian_kernel_materialize": 0,
     "crf_fused_iteration": 0,
     "gaussian_kernel_matmul": 0,

@@ -1,8 +1,10 @@
-"""Plain multi-head attention (counterpart of ``pnp_ovss_tpu/ops/attention.py``).
+"""Multi-head attention (counterpart of ``pnp_ovss_tpu/ops/attention.py``).
 
-Used by the BERT fusion encoder, whose cross-attention probabilities are the
-GradCAM signal and must be materialised, and by ViT configurations too small
-for the flat kernel. Scores and softmax run in float32.
+Two implementations behind ``mha``: ``plain`` (the JAX package's ``xla``),
+PyTorch products with scores and softmax in float32, and ``flash`` (its
+``pallas``), kernel K9 ``flash_attention.flash_mha`` for the shapes it takes.
+The BERT fusion encoder's cross-attention probabilities are the GradCAM
+signal and must be materialised, so it always runs the plain path.
 """
 
 from __future__ import annotations
@@ -10,6 +12,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from pnp_ovss_tpu_torch.ops import flash_attention as _flash
 
 
 def attention_probs(q: torch.Tensor, k: torch.Tensor,
@@ -31,9 +35,22 @@ def apply_probs(probs: torch.Tensor, v: torch.Tensor, *,
     return out.to(out_dtype or v.dtype)
 
 
-def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-        bias: Optional[torch.Tensor] = None, *,
-        out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              bias: Optional[torch.Tensor] = None, *,
+              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """softmax(q k^T / sqrt(d) + bias) v on [B, H, T, D] (``mha_xla``)."""
     out = torch.matmul(attention_probs(q, k, bias), v.float())
     return out.to(out_dtype or q.dtype)
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        bias: Optional[torch.Tensor] = None, *, impl: str = "plain",
+        out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Attention on [B, H, T, D]. ``impl="flash"`` runs K9 where there is
+    no bias and ``flash_attention.supported(q)``, the plain math
+    otherwise, as the JAX package's ``mha(impl="pallas")`` does."""
+    if impl not in ("plain", "flash"):
+        raise ValueError(f"impl must be 'plain' or 'flash', got {impl!r}")
+    if impl == "flash" and bias is None and _flash.supported(q):
+        return _flash.flash_mha(q, k, v, out_dtype=out_dtype)
+    return mha_plain(q, k, v, bias, out_dtype=out_dtype)

@@ -1,16 +1,20 @@
-"""Flat-layout flash attention: kernel K2 (``csrc/flash_attention.cu``) and
-K4, attention + output projection + residual (``csrc/flash_qkv_proj.cu``).
+"""Flash attention: kernels K2, K7 and K9 (one kernel on strided views,
+``csrc/flash_attention.cu``) and K4, attention + output projection +
+residual (``csrc/flash_qkv_proj.cu``).
 
 Counterpart of ``pnp_ovss_tpu/ops/flash_attention.py``'s ``flash_mha_flat_qkv``,
-``flash_mha_flat`` and ``flash_mha_qkv_proj``. q/k/v stay in the qkv projection's own layout:
-``[B, S, H*D]`` column views with heads as column slices, so no head
-transposes happen around the kernel. Forward only: the GradCAM tap sits in
-the BERT cross-attention, so no gradient ever reaches the ViT.
+``flash_mha_flat``, ``flash_mha_flat_xlen``, ``flash_mha`` and
+``flash_mha_qkv_proj``. In the flat entries q/k/v stay in the qkv
+projection's own layout: ``[B, S, H*D]`` column views with heads as column
+slices, so no head transposes happen around the kernel; ``flash_mha``
+reads ``[B, H, S, D]`` through its strides. Forward only: the GradCAM tap
+sits in the BERT cross-attention, so no gradient ever reaches the ViT.
 
 On a CUDA tensor the wrappers launch the CUDA kernel (bf16 in and out) or
-raise; on a CPU tensor they run ``attention_plain``, the same math in plain
-PyTorch. The TPU's tile policies (``seq_blocks`` padding, batch and head
-groups) are not ported: the kernel masks the ragged tail itself.
+raise; on a CPU tensor they run the plain version, the same math in plain
+PyTorch. The TPU's tile policies (``seq_blocks`` padding, the 16-row and
+256-row q padding, batch and head groups) are not ported: the kernel masks
+the ragged tail itself.
 """
 
 from __future__ import annotations
@@ -24,63 +28,84 @@ from pnp_ovss_tpu_torch.ops import _build
 _NEG_INF = -1e30
 
 
-def flat_supported(s: int, d: int) -> bool:
-    """Shapes the ViT sends through the flat kernel (the rest run the plain
-    attention, as the JAX package sends them to XLA). The JAX package's
-    head-count condition is a TPU lane rule and does not apply here."""
+def flat_supported(s: int, h: int, d: int) -> bool:
+    """Shapes the ViT sends through the flat kernel K2 (the rest go to
+    ``ops.attention.mha``), the JAX package's rule: heads in pairs, as its
+    TPU kernel takes them, although the port's kernel takes any head
+    count."""
+    return d in (64, 128) and s >= 128 and h % 2 == 0
+
+
+def xlen_supported(sq: int, skv: int, h: int, d: int) -> bool:
+    """Shapes the sequence-parallel attention sends through K7: ``sq`` the
+    local query chunk, ``skv`` the gathered key count. The JAX package's
+    rule without its head-pair lane rule: the kernel takes any head count
+    (``h`` is kept for the JAX signature)."""
+    del h
+    return d in (64, 128) and skv >= 128 and sq >= 16
+
+
+def supported(q: torch.Tensor) -> bool:
+    """Shapes ``ops.attention.mha(impl="flash")`` sends through K9."""
+    *_, s, d = q.shape
     return d in (64, 128) and s >= 128
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     num_heads: int, true_len: int,
                     out_dtype: torch.dtype) -> torch.Tensor:
-    """Plain version of the kernel: q/k/v [B, S, H*D] (any strides) ->
-    [B, S, H*D]. q is scaled before the product, as the kernel does; keys
-    at index >= true_len are masked."""
-    b, s, hd = q.shape
+    """Plain version of K2 and K7: q [B, Sq, H*D], k/v [B, Skv, H*D] (any
+    strides) -> [B, Sq, H*D]. q is scaled before the product, as the
+    kernel does; keys at index >= true_len are masked."""
+    b, sq, hd = q.shape
+    skv = k.shape[1]
     d = hd // num_heads
 
     def heads(x):
-        return x.reshape(b, s, num_heads, d).permute(0, 2, 1, 3).float()
+        return x.reshape(b, x.shape[1], num_heads, d).permute(0, 2, 1, 3) \
+            .float()
 
     scores = (heads(q) * (1.0 / d**0.5)) @ heads(k).transpose(-1, -2)
-    if true_len < s:
+    if true_len < skv:
         scores[..., true_len:] = _NEG_INF
     out = torch.softmax(scores, dim=-1) @ heads(v)
-    return out.permute(0, 2, 1, 3).reshape(b, s, hd).to(out_dtype)
+    return out.permute(0, 2, 1, 3).reshape(b, sq, hd).to(out_dtype)
 
 
-def _launch(q, k, v, *, num_heads: int, true_len: int) -> torch.Tensor:
-    b, s, hd = q.shape
-    d = hd // num_heads
-    out = torch.empty((b, s, hd), dtype=torch.bfloat16, device=q.device)
-    views = {"q": q, "k": k, "v": v, "out": out}
-    if len({t.device for t in views.values()}) != 1:
-        raise ValueError("flash_mha_flat: q/k/v on different devices")
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_mha_flat: needs a CUDA tensor, got {q.device}")
-    for name, t in views.items():
+def _check_views(name: str, **views: torch.Tensor) -> None:
+    """What the kernel reads: bf16 tensors on one CUDA device, unit stride
+    in the last dim, 16-byte aligned pointers and other strides."""
+    devs = {t.device for t in views.values()}
+    if len(devs) != 1:
+        raise ValueError(f"{name}: tensors on different devices "
+                         f"{ {k: str(t.device) for k, t in views.items()} }")
+    dev = next(iter(devs))
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: needs CUDA tensors, got {dev}")
+    for k, t in views.items():
         if t.dtype != torch.bfloat16:
-            raise TypeError(f"flash_mha_flat: {name} must be bfloat16, "
-                            f"got {t.dtype}")
-        if t.shape != (b, s, hd):
-            raise ValueError(f"flash_mha_flat: {name} shape {tuple(t.shape)}"
-                             f" != {(b, s, hd)}")
-        if (t.stride(2) != 1 or t.stride(1) % 8 or t.stride(0) % 8
+            raise TypeError(f"{name}: {k} must be bfloat16, got {t.dtype}")
+        if (t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:-1])
                 or t.data_ptr() % 16):
-            raise ValueError(f"flash_mha_flat: {name} needs unit column "
-                             "stride and 16-byte aligned rows")
+            raise ValueError(f"{name}: {k} needs unit column stride and "
+                             "16-byte aligned rows")
+
+
+def _check_head_dim(name: str, hd: int, num_heads: int) -> int:
+    d = hd // num_heads
     if d not in (64, 128) or hd != num_heads * d:
-        raise ValueError(f"flash_mha_flat: head dim {d} not in (64, 128)")
-    lib = _build.library("flash_attention")
-    rc = lib.flash_mha_flat_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), out.stride(0), out.stride(1),
-        b, s, true_len, num_heads, d, 1.0 / d**0.5, _build.stream_ptr(q))
-    _build.check(lib, rc, "flash_mha_flat")
-    _build.LAUNCHES["flash_mha_flat_qkv"] += 1
-    return out
+        raise ValueError(f"{name}: head dim {hd} / {num_heads} heads not in "
+                         "(64, 128)")
+    return d
+
+
+def _flat_strides(*views: torch.Tensor):
+    return [st for t in views for st in (t.stride(0), t.stride(1))]
+
+
+def _bf16_out(out_dtype: torch.dtype) -> None:
+    if out_dtype != torch.bfloat16:
+        raise TypeError(f"the CUDA kernel writes bfloat16, not {out_dtype}")
 
 
 def flash_mha_flat(q2: torch.Tensor, k2: torch.Tensor, v2: torch.Tensor, *,
@@ -90,16 +115,100 @@ def flash_mha_flat(q2: torch.Tensor, k2: torch.Tensor, v2: torch.Tensor, *,
     [B, S, H*D]. ``true_len`` masks keys at or beyond it when the caller
     carries padded rows; rows beyond it are garbage by contract."""
     out_dtype = out_dtype or q2.dtype
-    s = q2.shape[1]
+    b, s, hd = q2.shape
     tl = s if true_len is None else true_len
     if not 0 < tl <= s:
         raise ValueError(f"true_len {tl} outside (0, {s}]")
     if q2.device.type == "cpu":
         return attention_plain(q2, k2, v2, num_heads=num_heads, true_len=tl,
                                out_dtype=out_dtype)
-    if out_dtype != torch.bfloat16:
-        raise TypeError(f"the CUDA kernel writes bfloat16, not {out_dtype}")
-    return _launch(q2, k2, v2, num_heads=num_heads, true_len=tl)
+    _bf16_out(out_dtype)
+    out = torch.empty((b, s, hd), dtype=torch.bfloat16, device=q2.device)
+    views = dict(q=q2, k=k2, v=v2, out=out)
+    _check_views("flash_mha_flat", **views)
+    for name, t in views.items():
+        if t.shape != (b, s, hd):
+            raise ValueError(f"flash_mha_flat: {name} shape "
+                             f"{tuple(t.shape)} != {(b, s, hd)}")
+    d = _check_head_dim("flash_mha_flat", hd, num_heads)
+    lib = _build.library("flash_attention")
+    rc = lib.flash_mha_flat_bf16(
+        q2.data_ptr(), k2.data_ptr(), v2.data_ptr(), out.data_ptr(),
+        *_flat_strides(q2, k2, v2, out), b, s, tl, num_heads, d,
+        1.0 / d**0.5, _build.stream_ptr(q2))
+    _build.check(lib, rc, "flash_mha_flat")
+    _build.LAUNCHES["flash_mha_flat_qkv"] += 1
+    return out
+
+
+def flash_mha_flat_xlen(q2: torch.Tensor, k2: torch.Tensor,
+                        v2: torch.Tensor, *, num_heads: int,
+                        out_dtype: Optional[torch.dtype] = None,
+                        true_kv_len: Optional[int] = None) -> torch.Tensor:
+    """Cross-length flat attention (K7), the sequence-parallel entry: a
+    local chunk of query rows q [B, Sq, H*D] over the K/V gathered from
+    every rank, k/v [B, Skv, H*D] -> [B, Sq, H*D]. Keys at or beyond
+    ``true_kv_len`` (padding that travels with the last chunk) are masked.
+    The kernel visits the keys in K2's 64-key tiles and order, so each
+    row is bit-equal to the same row of K2 over the whole sequence."""
+    out_dtype = out_dtype or q2.dtype
+    b, sq, hd = q2.shape
+    skv = k2.shape[1]
+    tl = skv if true_kv_len is None else true_kv_len
+    if not 0 < tl <= skv:
+        raise ValueError(f"true_kv_len {tl} outside (0, {skv}]")
+    if k2.shape != (b, skv, hd) or v2.shape != (b, skv, hd):
+        raise ValueError(f"flash_mha_flat_xlen: k {tuple(k2.shape)} / v "
+                         f"{tuple(v2.shape)} do not match q "
+                         f"{tuple(q2.shape)}")
+    if q2.device.type == "cpu":
+        return attention_plain(q2, k2, v2, num_heads=num_heads, true_len=tl,
+                               out_dtype=out_dtype)
+    _bf16_out(out_dtype)
+    out = torch.empty((b, sq, hd), dtype=torch.bfloat16, device=q2.device)
+    _check_views("flash_mha_flat_xlen", q=q2, k=k2, v=v2, out=out)
+    d = _check_head_dim("flash_mha_flat_xlen", hd, num_heads)
+    lib = _build.library("flash_attention")
+    rc = lib.flash_mha_xlen_bf16(
+        q2.data_ptr(), k2.data_ptr(), v2.data_ptr(), out.data_ptr(),
+        *_flat_strides(q2, k2, v2, out), b, sq, skv, tl, num_heads, d,
+        1.0 / d**0.5, _build.stream_ptr(q2))
+    _build.check(lib, rc, "flash_mha_flat_xlen")
+    _build.LAUNCHES["flash_mha_flat_xlen"] += 1
+    return out
+
+
+def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Flash self-attention (K9) on q/k/v [B, H, S, D] (any strides with a
+    unit last one; no mask) -> [B, H, S, D] in ``out_dtype`` (q's dtype by
+    default). On the CPU it runs ``ops.attention.mha_plain``. The CUDA
+    kernel takes bf16 only and raises on f32, which the JAX kernel also
+    takes: no caller of the port passes f32 on the card (the ViT computes
+    in bf16)."""
+    out_dtype = out_dtype or q.dtype
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"flash_mha: q/k/v shapes {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}; want one "
+                         "[B, H, S, D]")
+    if q.device.type == "cpu":
+        # attention.py imports this module; the plain math lives there.
+        from pnp_ovss_tpu_torch.ops.attention import mha_plain
+
+        return mha_plain(q, k, v, out_dtype=out_dtype)
+    _bf16_out(out_dtype)
+    b, h, s, d = q.shape
+    out = torch.empty((b, h, s, d), dtype=torch.bfloat16, device=q.device)
+    _check_views("flash_mha", q=q, k=k, v=v, out=out)
+    _check_head_dim("flash_mha", d, 1)
+    lib = _build.library("flash_attention")
+    rc = lib.flash_mha_bhsd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        *[st for t in (q, k, v, out) for st in t.stride()[:3]],
+        b, h, s, d, 1.0 / d**0.5, _build.stream_ptr(q))
+    _build.check(lib, rc, "flash_mha")
+    _build.LAUNCHES["flash_mha"] += 1
+    return out
 
 
 def flash_mha_flat_qkv(qkv3: torch.Tensor, *, num_heads: int,

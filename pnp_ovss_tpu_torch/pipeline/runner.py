@@ -1,9 +1,10 @@
 """End-to-end segmentation runner (counterpart of
-``pnp_ovss_tpu/pipeline/runner.py``, without mesh, sequence or pipeline
-parallelism and without the host parity path).
+``pnp_ovss_tpu/pipeline/runner.py``, with its sequence-parallel encode at
+data = 1; without data, tensor or pipeline parallelism and without the
+host parity path).
 
 ATTRIBUTION (per batch): salience-drop rounds (pipeline/drop.py: ViT
-encode with kernel K2, BERT GradCAM) -> token->class pooling ->
+encode, BERT GradCAM) -> token->class pooling ->
 threshold -> bilinear upsample to the bucket resolution, for the round-0
 map (rescaled 0-1) and the aggregated map.
 
@@ -34,6 +35,8 @@ from pnp_ovss_tpu_torch.models.blip_itm import BlipITM
 from pnp_ovss_tpu_torch.ops import crf as crf_mod
 from pnp_ovss_tpu_torch.ops.blur import blur_and_minmax
 from pnp_ovss_tpu_torch.ops.segment_pool import pool_token_maps
+from pnp_ovss_tpu_torch.parallel.mesh import SequenceGroup
+from pnp_ovss_tpu_torch.parallel.sequence import encode_images_sp
 from pnp_ovss_tpu_torch.pipeline import drop as drop_mod
 from pnp_ovss_tpu_torch.pipeline import masks as masks_mod
 
@@ -75,21 +78,47 @@ class PendingBatch:
 
 class SegmentationRunner:
     def __init__(self, cfg: PipelineConfig, model: BlipITM, *,
-                 device="cuda", bucket_size: int = 192):
+                 device="cuda", bucket_size: int = 192,
+                 encode_parallel: Optional[str] = None,
+                 sp_group: Optional[SequenceGroup] = None):
         """``model``: a ``BlipITM`` whose ``capture_layer`` is
         ``cfg.attribution.layer - 1`` (``init_blip_itm`` or
         ``from_jax_params``); it is moved to ``device``. Raises when
-        ``device`` is CUDA and there is no card."""
+        ``device`` is CUDA and there is no card.
+
+        ``encode_parallel``: None encodes on this process alone; "sp"
+        splits the ViT encode's tokens over ``sp_group``
+        (``parallel.mesh.make_mesh_2d``, data = 1): every rank of the
+        group runs a runner on the same model and batch, the encode
+        gathers K/V across the ranks, and every rank runs BERT, GradCAM,
+        the drop loop and the CRF on the whole batch and returns the same
+        results. "pp" (pipeline parallelism) is not ported yet."""
         self.cfg = cfg
         self.device = resolve_device(device)
         if model.text_encoder.capture_layer != cfg.attribution.layer - 1:
             raise ValueError(
                 f"model captures BERT layer {model.text_encoder.capture_layer}"
                 f", config asks for {cfg.attribution.layer - 1}")
+        if encode_parallel not in (None, "sp", "pp"):
+            raise ValueError(f"encode_parallel must be None, 'sp' or 'pp'; "
+                             f"got {encode_parallel!r}")
+        if encode_parallel == "pp":
+            raise NotImplementedError(
+                "encode_parallel='pp' (pipeline parallelism) is not ported")
+        if (encode_parallel == "sp") != (sp_group is not None):
+            raise ValueError("encode_parallel='sp' needs an sp_group "
+                             "(parallel.mesh.make_mesh_2d), and an sp_group "
+                             "needs encode_parallel='sp'")
         self.model = model.to(self.device)
         self.bucket = bucket_size
+        if sp_group is None:
+            embed = self.model.encode_image
+        else:
+            def embed(images):
+                return encode_images_sp(self.model.visual_encoder, images,
+                                        sp_group)
         self._round_step = drop_mod.make_split_round_step(
-            self.model.encode_image, self._bert_gradcam,
+            embed, self._bert_gradcam,
             cfg=cfg.drop, grid=cfg.model.vit.grid,
             patch_size=cfg.model.vit.patch_size)
         self._mean = torch.as_tensor(CLIP_MEAN, device=self.device)

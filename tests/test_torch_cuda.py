@@ -11,18 +11,22 @@ the main path's shapes: head dim 128, ragged sequence and pixel counts,
 row-padded anchors, one variant and fewer than 64 state rows; for the
 fused ViT kernels (K1, K3, K4) row counts that are no multiple of the
 row tile, narrow widths, masked keys and several key tiles; for K8 ragged
-N and M, M != N, 1 to 150 channels and strided values; and the CRF's
-exact, Nystrom and general-loop branches on the card against the CPU.
+N and M, M != N, 1 to 150 channels and strided values; the CRF's exact,
+Nystrom and general-loop branches on the card against the CPU; K7 at
+ragged chunks against K2's rows, K9 at odd S, and a two-rank
+sequence-parallel encode with both ranks on the one card (gloo).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from pnp_ovss_tpu_torch.config import CRFConfig
+from pnp_ovss_tpu_torch.config import CRFConfig, ViTConfig
+from pnp_ovss_tpu_torch.models.vit import VisionTransformer
 from pnp_ovss_tpu_torch.ops import (
     _build, bilateral, crf, flash_attention, vit_block,
 )
+from test_torch_sp_ranks import run_ranks
 
 pytestmark = pytest.mark.cuda
 
@@ -308,3 +312,95 @@ def test_fused_kernels_refuse_f32(cuda):
     with pytest.raises(TypeError):
         vit_block.ln_matmul(x, g, g, torch.zeros(128, 128, device=cuda),
                             torch.zeros(128, device=cuda))
+
+
+@pytest.mark.parametrize("d,s,true_len,lo,hi", [
+    (64, 442, 442, 221, 442), (64, 300, 261, 0, 150), (128, 200, 171, 77, 200),
+    (128, 130, 130, 5, 90)])
+def test_xlen_rows_bit_equal_to_flat_kernel(cuda, d, s, true_len, lo, hi):
+    """K7 on the query chunk [lo, hi) over all S keys, keys >= true_len
+    masked, equals K2's rows [lo, hi) over the whole sequence bit for bit
+    (rows >= true_len are garbage by contract), and its plain version
+    within K2's bar. Chunks start and end off the 64-row tile."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    b, h = 2, 3
+    hd = h * d
+    qkv = _randn(gen, b, s, 3 * hd).to(torch.bfloat16)
+    q, k, v = qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:]
+    full = flash_attention.flash_mha_flat(q, k, v, num_heads=h,
+                                          true_len=true_len)
+    before = _build.LAUNCHES["flash_mha_flat_xlen"]
+    part = flash_attention.flash_mha_flat_xlen(
+        q[:, lo:hi], k, v, num_heads=h, true_kv_len=true_len)
+    assert _build.LAUNCHES["flash_mha_flat_xlen"] == before + 1
+    rows = min(hi, true_len) - lo
+    torch.testing.assert_close(part[:, :rows], full[:, lo:lo + rows],
+                               rtol=0, atol=0)
+    ref = flash_attention.attention_plain(
+        q[:, lo:hi], k, v, num_heads=h, true_len=true_len,
+        out_dtype=torch.float32)
+    assert (part[:, :rows].float() - ref[:, :rows]).abs().max().item() < 2e-2
+
+
+@pytest.mark.parametrize("b,h,s,d", [(2, 3, 145, 64), (1, 2, 301, 128),
+                                     (3, 1, 77, 64)])
+def test_bhsd_kernel_matches_plain(cuda, b, h, s, d):
+    """K9 on [B, H, S, D] at odd S, contiguous and as the unfused ViT
+    passes it (strided head views of one qkv array), against
+    ``mha_plain``: bf16 P and output, K2's bar."""
+    from pnp_ovss_tpu_torch.ops.attention import mha_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    qkv = _randn(gen, b, s, 3, h, d).to(torch.bfloat16)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    before = _build.LAUNCHES["flash_mha"]
+    out = flash_attention.flash_mha(q, k, v)
+    assert _build.LAUNCHES["flash_mha"] == before + 1
+    assert out.shape == (b, h, s, d) and out.dtype == torch.bfloat16
+    ref = mha_plain(q, k, v, out_dtype=torch.float32)
+    assert (out.float() - ref).abs().max().item() < 2e-2
+    dense = flash_attention.flash_mha(q.contiguous(), k.contiguous(),
+                                      v.contiguous())
+    torch.testing.assert_close(dense, out, rtol=0, atol=0)
+
+
+def test_xlen_and_bhsd_refuse_f32_and_mixed_devices(cuda):
+    q = torch.zeros(1, 16, 130, 3 * 64, device=cuda)[..., :64]
+    with pytest.raises(TypeError):
+        flash_attention.flash_mha(q, q, q)
+    with pytest.raises(ValueError):
+        flash_attention.flash_mha(q.bfloat16(), q.bfloat16(),
+                                  q.bfloat16().cpu())
+    x = torch.zeros(1, 130, 128, device=cuda)
+    with pytest.raises(TypeError):
+        flash_attention.flash_mha_flat_xlen(x, x, x, num_heads=2)
+    with pytest.raises(ValueError):
+        flash_attention.flash_mha_flat_xlen(
+            x.bfloat16(), x.bfloat16().cpu(), x.bfloat16(), num_heads=2)
+
+
+def test_two_rank_sp_encode_on_one_card(cuda, tmp_path):
+    """The fused narrow ViT (width 128, 2 heads, 192 px: 145 tokens) split
+    over two ranks that share the card through gloo equals the unsharded
+    encode on the card bit for bit: K7's rows are K2's, K1 and K3 are
+    row-local, and cuBLAS sums the proj in the same order over 73 rows as
+    over 145 (chip_smoke.py holds the full-width runs to the same). Each
+    rank launches K7 once per layer and never K2 or K4."""
+    cfg = ViTConfig(image_size=192, hidden_size=128, num_layers=2,
+                    num_heads=2)
+    torch.manual_seed(0)
+    vit = VisionTransformer(cfg).to(cuda).requires_grad_(False)
+    for p in vit.parameters():
+        p.normal_(0, 0.05)
+    images = torch.rand((2, 192, 192, 3), device=cuda)
+    with torch.no_grad():
+        want = vit(images)
+    ranks = run_ranks({"vit": ("encode", vit, images)}, [str(cuda)] * 2,
+                      tmp_path)
+    for out in ranks:
+        got = out["vit"]
+        assert got.shape == want.shape == (2, 145, 128)
+        torch.testing.assert_close(got, want.cpu(), rtol=0, atol=0)
+        n = out["launches"]
+        assert n["flash_mha_flat_xlen"] == cfg.num_layers
+        assert n["flash_mha_flat_qkv"] == n["flash_mha_qkv_proj"] == 0

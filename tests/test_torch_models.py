@@ -153,6 +153,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     it on the card (``chip_smoke.py`` and the port's profiling scripts)."""
     files = sorted(PKG.rglob("*.py"))
     assert len(files) > 10
+    assert PKG / "parallel" / "sequence.py" in files
     repo = PKG.parent
     card_scripts = [repo / "chip_smoke.py",
                     repo / "scripts" / "profile_torch_port.py",
