@@ -485,6 +485,11 @@ def fused_vit_kernels(cfg, cfg768):
             lines.append(row)
             if label == "336 px":
                 rows[name] = row
+            else:  # the 768 px leg's numbers beside the 336 px row's
+                rows[name]["shapes"] = [
+                    {k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                       "unfused_ms", "max_abs_err")}
+                    for r in (rows[name], row)]
         del x
 
     # K4 as the ViT calls it at 768 px: one launch per layer over the

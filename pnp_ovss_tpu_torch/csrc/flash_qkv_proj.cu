@@ -19,11 +19,13 @@
 // Design: a block owns one (image, 64-query tile). G groups of 4 warps
 // (G = 4 at head dim 64, 16 warps; else 2) take G heads at a time, each
 // warp 16 query rows, with K2's per-warp online softmax over 64-key tiles
-// (flash_tile.cuh; each group has its own K / V^T tiles in shared
-// memory). Each head's bf16 output goes into a [64, H*D] slab in shared
-// memory (132 KB at H*D = 1024), so the attention output never reaches
-// device memory. The proj then runs from the slab over 128-column chunks
-// of Wp, streamed in 64-deep k tiles through a 3-stage cp.async ring
+// (flash_tile.cuh, the one definition of the per-row arithmetic, so each
+// head output equals K2's and K7's row bit for bit; each group has its
+// own row-major K / V tiles in shared memory, filled by cp.async and read
+// through ldmatrix). Each head's bf16 output goes into a [64, H*D] slab in
+// shared memory (132 KB at H*D = 1024), so the attention output never
+// reaches device memory. The proj then runs from the slab over 128-column
+// chunks of Wp, streamed in 64-deep k tiles through a 3-stage cp.async ring
 // (which reuses the K / V tiles' shared memory), the full H*D contraction
 // in f32 registers, and the epilogue adds bp and x in bf16 steps. One
 // block fills an SM (206 KB of shared memory at D = 64), 444 blocks at
@@ -41,10 +43,10 @@ constexpr int kBQ = 64;
 constexpr int kStages = 3;  // proj: cp.async ring of Wp tiles
 using pnp::flash::kBK;
 
-// Shared memory of one group's K and V^T tiles.
+// Shared memory of one group's K and V tiles.
 template <int D>
 __host__ __device__ constexpr size_t group_bytes() {
-  return (kBK * (D + 8) + D * (kBK + 8)) * sizeof(__nv_bfloat16);
+  return 2 * kBK * pnp::flash::tile_ld<D>() * sizeof(__nv_bfloat16);
 }
 constexpr size_t kProjBytes =
     kStages * pnp::kWTileN * pnp::kWTileLd * sizeof(__nv_bfloat16);
@@ -76,26 +78,27 @@ __global__ void __launch_bounds__(128 * G, 1) qkv_proj_kernel(
   const long long rs = 3LL * hd;  // qkv row stride
   const __nv_bfloat16* base = qkv + b * S * rs;
 
-  // This group's K and V^T tiles.
-  auto ks = reinterpret_cast<__nv_bfloat16(*)[D + 8]>(
-      work + grp * group_bytes<D>());
-  auto vt = reinterpret_cast<__nv_bfloat16(*)[kBK + 8]>(
-      work + grp * group_bytes<D>() + kBK * (D + 8) * sizeof(__nv_bfloat16));
+  // This group's K and V tiles.
+  __nv_bfloat16* ks =
+      reinterpret_cast<__nv_bfloat16*>(work + grp * group_bytes<D>());
+  __nv_bfloat16* vs = ks + kBK * pnp::flash::tile_ld<D>();
 
   for (int h0 = 0; h0 < H; h0 += G) {
     const int h = h0 + grp;
-    uint32_t qa[D / 16][4];
-    pnp::flash::load_q<D>(qa, base + h * D, rs, qt0 + wq * 16, S, scale, g,
-                          t);
+    uint32_t qa[1][D / 16][4];
+    pnp::flash::load_q<D>(qa[0], base + h * D, rs, qt0 + wq * 16, S, scale,
+                          g, t);
     pnp::flash::Softmax<D> sm;
     sm.init();
     for (int k0 = 0; k0 < L; k0 += kBK) {
       group_sync(grp);  // the group's previous tile is fully consumed
-      pnp::flash::load_kv<D>(ks, vt, base + hd + h * D, rs,
+      pnp::flash::load_kv<D>(ks, vs, base + hd + h * D, rs,
                              base + 2 * hd + h * D, rs, k0, L, tid % 128,
                              128);
+      pnp::cp_async_commit();
+      pnp::cp_async_wait<0>();
       group_sync(grp);
-      sm.tile(qa, ks, vt, k0, L, g, t);
+      sm.tile(qa, ks, vs, k0, L, lane);
     }
     sm.finish();
 #pragma unroll
@@ -104,8 +107,8 @@ __global__ void __launch_bounds__(128 * G, 1) qkv_proj_kernel(
 #pragma unroll
       for (int n = 0; n < D / 8; ++n)
         *reinterpret_cast<uint32_t*>(srow + n * 8 + t * 2) =
-            pnp::pack_bf16x2(sm.o[n][2 * r] / sm.l[r],
-                             sm.o[n][2 * r + 1] / sm.l[r]);
+            pnp::pack_bf16x2(sm.o[0][n][2 * r] / sm.l[0][r],
+                             sm.o[0][n][2 * r + 1] / sm.l[0][r]);
     }
   }
   __syncthreads();  // the slab is complete; the K / V tiles are free

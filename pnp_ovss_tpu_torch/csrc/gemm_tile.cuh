@@ -1,7 +1,8 @@
-// Tile helpers of the fused ViT kernels (K1 ln_matmul, K3 ln_mlp_residual,
-// K4 flash_mha_qkv_proj): cp.async copies into shared memory, ldmatrix
-// fragment loads for mma.sync m16n8k16, and the f32 LayerNorm of rows
-// held in shared memory.
+// Tile helpers of the port's mma.sync kernels (K1 ln_matmul, K4
+// flash_mha_qkv_proj, the flash kernel, K8) and of K3's LayerNorm:
+// cp.async copies into shared memory, ldmatrix fragment loads for mma.sync
+// m16n8k16, warp sums, bf16 rounding and the f32 LayerNorm of rows held in
+// shared memory.
 #pragma once
 
 #include "common.cuh"
@@ -53,17 +54,6 @@ __device__ __forceinline__ void ldm_b2(uint32_t (&b)[4],
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
       : "r"(smem_addr(q)));
-}
-
-// B fragment of one n8 block (columns n0..n0+7), as ldm_b2.
-__device__ __forceinline__ void ldm_b1(uint32_t (&b)[2],
-                                       const __nv_bfloat16* p, int ld,
-                                       int lane) {
-  const int l = lane % 16;
-  const __nv_bfloat16* q = p + (l % 8) * ld + (l / 8) * 8;
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(b[0]), "=r"(b[1])
-               : "r"(smem_addr(q)));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

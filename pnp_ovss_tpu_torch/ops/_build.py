@@ -49,7 +49,7 @@ SOURCES: Dict[str, Dict[str, list]] = {
         "ln_matmul_bf16": [_P] * 6 + [_I] * 3 + [_F, _P],
     },
     "ln_mlp_residual": {
-        "ln_mlp_residual_bf16": [_P] * 8 + [_I] * 3 + [_F, _P],
+        "ln_mlp_residual_bf16": [_P] * 10 + [_I] * 3 + [_F, _P],
     },
     "flash_qkv_proj": {
         "flash_mha_qkv_proj_bf16": [_P] * 5 + [_I] * 6 + [_F, _P],

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""What bounds the fused ViT kernels K1 (ln_matmul) and K3 (ln_mlp_residual)
-and the CRF's K8 (gaussian_kernel_matmul) on one GPU: each is rebuilt with
-one part of its work taken out and timed at its main-path shape (336 px;
-K8 at the exact CRF's N = M = 36864, C = 58 and C = 1) beside the full
-kernel.
+"""What bounds the fused ViT kernels K1 (ln_matmul) and K3 (ln_mlp_residual),
+the flash kernel (K2/K7/K9) and the CRF's K8 (gaussian_kernel_matmul) on one
+GPU: each is rebuilt with one part of its work taken out, or with another
+block shape, and timed at its main-path shapes (336 px; the flash kernel
+also at S = 2305 with head dim 64 and 128; K8 at the exact CRF's
+N = M = 36864, C = 58 and C = 1) beside the full kernel.
 
-    python3 scripts/kernel_ablation.py [--out DIR]
+    python3 scripts/kernel_ablation.py [--out DIR] [--kernels SRC,...]
 
 Variants (built from the sources in ``pnp_ovss_tpu_torch/csrc`` with a
 textual edit, into ``DIR``; their outputs are wrong by design and only
@@ -14,8 +15,17 @@ their times are read):
 - K1: ``no_ln`` skips the LayerNorm pass, ``no_mma`` replaces the
   tensor-core products by a register update, ``no_w_loads`` stops
   streaming W tiles (the product reads stale shared memory);
-- K3: ``no_gelu`` stores the fc1 output without the gelu, ``no_w_loads``
-  stops streaming W1 / W2 tiles, ``no_fc2_mma`` drops fc2's products;
+- K3 (three kernels a call: LayerNorm, fc1 + gelu, fc2 + residual):
+  ``no_gelu`` stores fc1's rounded output without the gelu,
+  ``no_epilogue`` has both GEMMs' epilogue warpgroup skip its work
+  (nothing is stored),
+  ``no_tma`` has the producer arrive on each stage without loading it (the
+  products read stale shared memory), so the wgmma loop runs alone;
+- flash kernel (outputs stay right), each at one head dim (``d64_`` /
+  ``d128_``): ``minbN`` caps registers for N blocks an SM in place of 4
+  (D = 64) or 3 (D = 128), ``rb2`` gives each warp two blocks of 16 query
+  rows, ``warps8`` a block 8 warps in place of 4, ``stages3`` a ring of 3
+  K/V tiles in place of 2;
 - K8: ``no_ex2`` uses d^2 itself as k, ``two_diffs`` sums 2 of the 5
   squared differences, ``no_mma`` replaces the products by a register
   update, ``no_stage`` stages only the first 64 columns (the loop reads
@@ -59,12 +69,31 @@ VARIANTS = {
     },
     "ln_mlp_residual": {
         "full": [],
-        "no_gelu": [("pnp::pack_bf16x2(gelu_bf16(y0), gelu_bf16(y1))",
-                     "pnp::pack_bf16x2(y0, y1)")],
-        "no_w_loads": [("c < kBF * D / 8;", "c < 0;"),
-                       ("c < D * kBF / 8;", "c < 0;")],
-        "no_fc2_mma": [_NO_MMA, ("pnp::mma_bf16_16816(acc[i]",
-                                 "no_mma(acc[i]")],
+        "no_gelu": [("o[i] = pnp::pack_bf16x2(gelu_bf16(f.x), "
+                     "gelu_bf16(f.y));", "o[i] = y[i];")],
+        "no_epilogue": [("for (int row = etid / (kBN / 8); row < kBM;",
+                         "for (int row = kBM; row < kBM;")],
+        "no_tma": [("hw::mbar_expect_tx(&full[stage], kStageBytes);",
+                    "hw::mbar_arrive(&full[stage]);"),
+                   ("hw::tma_load_2d(a_tile(stage)", "if (0) hw::tma_load_2d("
+                    "a_tile(stage)"),
+                   ("hw::tma_load_2d(b_tile(stage)", "if (0) hw::tma_load_2d("
+                    "b_tile(stage)")],
+    },
+    "flash_attention": {
+        "full": [],
+        "d64_minb3": [("kMinBlocksD64 = 4", "kMinBlocksD64 = 3")],
+        "d64_rb2": [("kRowBlocksD64 = 1", "kRowBlocksD64 = 2"),
+                    ("kMinBlocksD64 = 4", "kMinBlocksD64 = 2")],
+        "d64_rb2_minb3": [("kRowBlocksD64 = 1", "kRowBlocksD64 = 2"),
+                          ("kMinBlocksD64 = 4", "kMinBlocksD64 = 3")],
+        "d64_warps8": [("kWarpsD64 = 4", "kWarpsD64 = 8"),
+                       ("kMinBlocksD64 = 4", "kMinBlocksD64 = 2")],
+        "d64_stages3": [("kStagesD64 = 2", "kStagesD64 = 3")],
+        "d128_minb3": [("kMinBlocksD128 = 2", "kMinBlocksD128 = 3")],
+        "d128_warps8": [("kWarpsD128 = 4", "kWarpsD128 = 8"),
+                        ("kMinBlocksD128 = 2", "kMinBlocksD128 = 1")],
+        "d128_stages3": [("kStagesD128 = 2", "kStagesD128 = 3")],
     },
     "crf_matmul": {
         "full": [],
@@ -89,12 +118,14 @@ VARIANTS = {
 }
 
 
-def build(out_dir: str):
-    """Compile every variant in parallel. Returns {(kernel, variant): lib}."""
+def build(out_dir: str, sources):
+    """Compile every variant of ``sources`` in parallel. Returns
+    {(kernel, variant): lib}."""
     from pnp_ovss_tpu_torch.ops import _build
 
     procs = {}
-    for src, variants in VARIANTS.items():
+    for src in sources:
+        variants = VARIANTS[src]
         text = (_build.CSRC / f"{src}.cu").read_text()
         for name, edits in variants.items():
             s = text
@@ -116,13 +147,24 @@ def build(out_dir: str):
         if proc.returncode:
             raise SystemExit(f"{key}: nvcc failed\n{log}")
         libs[key] = ctypes.CDLL(so)
+        regs = [line.replace("ptxas info    :", "").strip()
+                for line in log.splitlines()
+                if "registers" in line or "spill stores" in line]
+        print(f"{key[0]} {key[1]} ptxas: {'; '.join(regs)}", flush=True)
     return libs
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="build/ablation")
+    ap.add_argument("--kernels", default=",".join(VARIANTS),
+                    help="sources to ablate, comma-separated (default all: "
+                    f"{','.join(VARIANTS)})")
     args = ap.parse_args()
+    sources = args.kernels.split(",")
+    if not set(sources) <= set(VARIANTS):
+        raise SystemExit(f"kernel_ablation: --kernels must name sources of "
+                         f"{sorted(VARIANTS)}")
 
     import torch
     from torch.nn import functional as F
@@ -136,7 +178,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(chip_smoke.card_line(), flush=True)
     os.makedirs(args.out, exist_ok=True)
-    libs = build(args.out)
+    libs = build(args.out, sources)
 
     cfg = chip_smoke.full_config(336)
     vit = cfg.model.vit
@@ -156,9 +198,24 @@ def main() -> int:
     w1, b1 = randn(f, d, scale=d**-0.5), randn(f, scale=0.02)
     w2, b2 = randn(d, f, scale=f**-0.5), randn(d, scale=0.02)
     y = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
-    z = torch.empty_like(x)
+    z, xn = torch.empty_like(x), torch.empty_like(x)
+    hidden = torch.empty((m, f), dtype=torch.bfloat16, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    Ll = ctypes.c_longlong
+    # The flash kernel through its flat entry on q/k/v column views of one
+    # qkv array: K2 at 336 px, and S = 2305 (the 768 px leg) with 16 heads
+    # of 64 and 8 heads of 128 (the shapes of K9's slow rows).
+    flash_shapes = []
+    for label, fb, fs, fh, fd in (("336 px", cfg.batch_size, vit.seq_len,
+                                   vit.num_heads, vit.head_dim),
+                                  ("768 px", 12, 2305, 16, 64),
+                                  ("768 px D=128", 12, 2305, 8, 128)):
+        qkv = randn(fb, fs, 3 * fh * fd)
+        flash_shapes.append((f"{label} [{fb}, {fh}, {fs}, {fd}]", qkv,
+                             torch.empty((fb, fs, fh * fd),
+                                         dtype=torch.bfloat16, device=dev),
+                             fb, fs, fh, fd))
     # K8 at the exact CRF's shape: the pixel features of the 192 bucket.
     hb = chip_smoke.BUCKET
     feats = chip_smoke.photo_like_rgb(hb, hb, gen).reshape(-1, 3) / 5.0
@@ -192,6 +249,25 @@ def main() -> int:
                       f"({pairs / ms / 1e9:.3f} T pairs/s; max |out - full| "
                       f"{diff:.3g})", flush=True)
             continue
+        if src == "flash_attention":
+            fn = lib.flash_mha_flat_bf16
+            fn.argtypes = [P] * 4 + [Ll] * 8 + [I] * 5 + [Fl, P]
+            for label, qkv, o, fb, fs, fh, fd in flash_shapes:
+                hd = fh * fd
+                rs, bs = 3 * hd, fs * 3 * hd
+                ptr = qkv.data_ptr()
+                call = (lambda fn=fn, ptr=ptr, hd=hd, rs=rs, bs=bs, o=o,
+                        fb=fb, fs=fs, fh=fh, fd=fd: fn(
+                            ptr, ptr + 2 * hd, ptr + 4 * hd, o.data_ptr(),
+                            bs, rs, bs, rs, bs, rs, fs * hd, hd, fb, fs, fs,
+                            fh, fd, fd**-0.5, stream))
+                if call() != 0:
+                    raise SystemExit(f"{src} {name}: launch failed")
+                ms = chip_smoke.time_ms(call, 20)
+                print(f"{src} {name} {label}: {ms:.4f} ms ("
+                      f"{4.0 * fb * fh * fs * fs * fd / ms / 1e9:.1f} "
+                      "TFLOP/s)", flush=True)
+            continue
         if src == "ln_matmul":
             fn = lib.ln_matmul_bf16
             fn.argtypes = [P] * 6 + [I] * 3 + [Fl, P]
@@ -201,12 +277,14 @@ def main() -> int:
             flops = 2.0 * m * d * n
         else:
             fn = lib.ln_mlp_residual_bf16
-            fn.argtypes = [P] * 8 + [I] * 3 + [Fl, P]
+            fn.argtypes = [P] * 10 + [I] * 3 + [Fl, P]
             call = (lambda fn=fn: fn(
                 x.data_ptr(), g.data_ptr(), b.data_ptr(), w1.data_ptr(),
-                b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), z.data_ptr(),
-                m, d, f, 1e-6, stream))
+                b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), xn.data_ptr(),
+                hidden.data_ptr(), z.data_ptr(), m, d, f, 1e-6, stream))
             flops = 4.0 * m * d * f
+        if call() != 0:
+            raise SystemExit(f"{src} {name}: launch failed")
         ms = chip_smoke.time_ms(call, 10)
         print(f"{src} {name}: {ms:.4f} ms ({flops / ms / 1e9:.1f} "
               "TFLOP/s of the full kernel's work)", flush=True)

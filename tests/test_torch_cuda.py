@@ -83,6 +83,57 @@ def test_flash_kernel_refuses_f32(cuda):
         flash_attention.flash_mha_flat_qkv(qkv, num_heads=2)
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("entry", ["qkv", "flat", "xlen", "bhsd"])
+def test_flash_entries_match_plain_across_the_ring(cuda, entry, d):
+    """Every entry of the flash kernel (qkv views, three sliced arrays, a
+    query chunk over more keys, [B, H, S, D]) at S and true_len that are
+    no multiple of the 64-key tile or of any query tile, over more key
+    tiles than the ring has stages, against its plain version: bf16 P in
+    the P.V product and a bf16 output."""
+    from pnp_ovss_tpu_torch.ops.attention import mha_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    b, h, s, tl = 2, 3, 517, 483
+    hd = h * d
+    qkv = _randn(gen, b, s, 3 * hd).to(torch.bfloat16)
+    q, k, v = qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:]
+    lo, hi = 37, 400  # the xlen entry's query chunk
+    counter = {"qkv": "flash_mha_flat_qkv", "flat": "flash_mha_flat_qkv",
+               "xlen": "flash_mha_flat_xlen", "bhsd": "flash_mha"}[entry]
+    before = _build.LAUNCHES[counter]
+    if entry == "bhsd":
+        qh, kh, vh = (x.unflatten(-1, (h, d)).transpose(1, 2)
+                      for x in (q, k, v))
+        out = flash_attention.flash_mha(qh, kh, vh)
+        ref = mha_plain(qh, kh, vh, out_dtype=torch.float32)
+        rows = s
+    elif entry == "xlen":
+        out = flash_attention.flash_mha_flat_xlen(
+            q[:, lo:hi], k, v, num_heads=h, true_kv_len=tl)
+        ref = flash_attention.attention_plain(
+            q[:, lo:hi], k, v, num_heads=h, true_len=tl,
+            out_dtype=torch.float32)
+        rows = hi - lo
+    else:
+        out = (flash_attention.flash_mha_flat_qkv(qkv, num_heads=h,
+                                                  true_len=tl)
+               if entry == "qkv" else
+               flash_attention.flash_mha_flat(q.contiguous(), k.contiguous(),
+                                              v.contiguous(), num_heads=h,
+                                              true_len=tl))
+        ref = flash_attention.attention_plain(q, k, v, num_heads=h,
+                                              true_len=tl,
+                                              out_dtype=torch.float32)
+        rows = tl
+    assert _build.LAUNCHES[counter] == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    err = (out[..., :rows, :].float() - ref[..., :rows, :]).abs().max() \
+        if entry == "bhsd" else \
+        (out[:, :rows].float() - ref[:, :rows]).abs().max()
+    assert err.item() < 5e-3, err.item()
+
+
 def _feats(gen, n):
     u = torch.rand((n, 5), generator=gen, device=gen.device)
     return u * torch.tensor([10, 10, 51, 51, 51], device=gen.device)
@@ -257,8 +308,10 @@ def test_ln_matmul_kernel_matches_plain(cuda, m, d, n):
 
 
 @pytest.mark.parametrize("m,d,f", [(77, 128, 512), (300, 256, 1024),
-                                   (1001, 1024, 4096)])
+                                   (1001, 1024, 4096), (300, 256, 160)])
 def test_ln_mlp_residual_kernel_matches_plain(cuda, m, d, f):
+    """F = 160 runs fc1's last 256-wide column tile and fc2's last 64-deep
+    k-step past F (zero-filled by TMA, never stored)."""
     gen = torch.Generator(device=cuda).manual_seed(6)
     x = _randn(gen, m, d).to(torch.bfloat16)
     g, b = _norm_params(gen, d)
@@ -271,6 +324,55 @@ def test_ln_mlp_residual_kernel_matches_plain(cuda, m, d, f):
     assert _build.LAUNCHES["ln_mlp_residual"] == before + 1
     ref = vit_block.ln_mlp_residual_plain(x, g, b, w1, b1, w2, b2, eps=1e-6)
     torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+
+
+@pytest.mark.parametrize("m", [1, 127, 15470])
+@pytest.mark.parametrize("d", [128, 256, 512, 1024])
+def test_ln_mlp_residual_kernel_every_width(cuda, d, m):
+    """K3 at every width it takes, at one row, at a row count below one
+    128-row tile and at the 336 px main path's M = 35 x 442, F = 4 D.
+    The MLP output is rounded to bf16 before x is added, and the kernel
+    sums it in another order than the plain version: where it lands one
+    ulp apart at |out| in [4, 8) and x nearly cancels it, the result
+    differs by 2^-5 at any size. So: at most 1e-5 of the values outside
+    BF16_TOL, and none more than 2^-4 (chip_smoke.py's K3 bar) apart."""
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    f = 4 * d
+    x = _randn(gen, m, d).to(torch.bfloat16)
+    g, b = _norm_params(gen, d)
+    w1 = (_randn(gen, f, d) / d**0.5).to(torch.bfloat16)
+    b1 = (0.1 * _randn(gen, f)).to(torch.bfloat16)
+    w2 = (_randn(gen, d, f) / f**0.5).to(torch.bfloat16)
+    b2 = (0.1 * _randn(gen, d)).to(torch.bfloat16)
+    out = vit_block.ln_mlp_residual(x, g, b, w1, b1, w2, b2).float()
+    ref = vit_block.ln_mlp_residual_plain(x, g, b, w1, b1, w2, b2,
+                                          eps=1e-6).float()
+    diff = (out - ref).abs()
+    outside = diff > BF16_TOL["atol"] + BF16_TOL["rtol"] * ref.abs()
+    assert outside.float().mean().item() <= 1e-5, outside.sum().item()
+    assert diff.max().item() <= 0.0625, diff.max().item()
+
+
+def test_k3_and_flash_refuse_f32_and_mixed_devices(cuda):
+    d, f = 128, 512
+    x = torch.zeros(64, d, device=cuda)
+    g = torch.ones(d, device=cuda)
+    w1, b1 = torch.zeros(f, d, device=cuda), torch.zeros(f, device=cuda)
+    w2, b2 = torch.zeros(d, f, device=cuda), torch.zeros(d, device=cuda)
+    with pytest.raises(TypeError):
+        vit_block.ln_mlp_residual(x, g, g, w1, b1, w2, b2)
+    bf = [t.bfloat16() for t in (x, w1, b1, w2, b2)]
+    with pytest.raises(ValueError):
+        vit_block.ln_mlp_residual(bf[0], g, g, bf[1], bf[2], bf[3].cpu(),
+                                  bf[4])
+    qkv = torch.zeros(1, 130, 3 * 128, device=cuda)
+    with pytest.raises(TypeError):
+        flash_attention.flash_mha_flat(qkv[..., :128], qkv[..., 128:256],
+                                       qkv[..., 256:], num_heads=2)
+    qb = qkv.bfloat16()
+    with pytest.raises(ValueError):
+        flash_attention.flash_mha_flat(qb[..., :128], qb[..., 128:256].cpu(),
+                                       qb[..., 256:], num_heads=2)
 
 
 def test_gelu_kernel_matches_plain_on_every_code(cuda):
