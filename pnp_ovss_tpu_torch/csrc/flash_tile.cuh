@@ -1,6 +1,6 @@
 // Online-softmax attention of one warp's query rows (blocks of 16) over
-// tiles of 64 keys, shared by K2/K7/K9 (flash_attention.cu) and K4
-// (flash_qkv_proj.cu).
+// tiles of 64 keys, the arithmetic of the flash kernel (flash_kernel.cuh)
+// that K2/K7/K9 (flash_attention.cu) and K4 (flash_qkv_proj.cu) run.
 //
 // This file is the one definition of the per-row arithmetic, so that every
 // entry computes a query row bit for bit alike:

@@ -46,13 +46,14 @@ SOURCES: Dict[str, Dict[str, list]] = {
         "gaussian_kernel_matmul": [_P] * 4 + [_I] * 5 + [_P],
     },
     "ln_matmul": {
-        "ln_matmul_bf16": [_P] * 6 + [_I] * 3 + [_F, _P],
+        "ln_matmul_bf16": [_P] * 7 + [_I] * 3 + [_F, _P],
     },
     "ln_mlp_residual": {
         "ln_mlp_residual_bf16": [_P] * 10 + [_I] * 3 + [_F, _P],
     },
     "flash_qkv_proj": {
-        "flash_mha_qkv_proj_bf16": [_P] * 5 + [_I] * 6 + [_F, _P],
+        "flash_mha_qkv_proj_bf16": [_P] * 6 + [_I] * 6 + [_F, _P],
+        "qkv_proj_residual_bf16": [_P] * 5 + [_I] * 3 + [_P],
     },
 }
 

@@ -1,6 +1,7 @@
 """Flash attention: kernels K2, K7 and K9 (one kernel on strided views,
-``csrc/flash_attention.cu``) and K4, attention + output projection +
-residual (``csrc/flash_qkv_proj.cu``).
+``csrc/flash_kernel.cuh`` through ``csrc/flash_attention.cu``) and K4,
+attention + output projection + residual (``csrc/flash_qkv_proj.cu``: the
+same flash kernel, then the wgmma GEMM of ``csrc/wgmma_gemm.cuh``).
 
 Counterpart of ``pnp_ovss_tpu/ops/flash_attention.py``'s ``flash_mha_flat_qkv``,
 ``flash_mha_flat``, ``flash_mha_flat_xlen``, ``flash_mha`` and
@@ -256,13 +257,17 @@ def flash_mha_qkv_proj(qkv3: torch.Tensor, x: torch.Tensor,
                        proj_w: torch.Tensor, proj_b: torch.Tensor, *,
                        num_heads: int,
                        true_len: Optional[int] = None) -> torch.Tensor:
-    """x + attention(qkv) @ proj_w^T + proj_b in one kernel.
+    """x + attention(qkv) @ proj_w^T + proj_b in one call.
 
     ``qkv3`` [B, S, 3*H*D] ([q | k | v] on the channel axis), ``x``
     [B, S, Dm] the residual stream, ``proj_w`` [Dm, H*D] (``nn.Linear``
     layout), ``proj_b`` [Dm]. Keys at or beyond ``true_len`` are masked.
-    Returns [B, S, Dm] in x's dtype: the attention output never reaches
-    device memory on the card."""
+    Returns [B, S, Dm] in x's dtype. On the card the call runs two
+    kernels: K2's flash kernel into bf16 head outputs [B, S, H*D],
+    scratch this wrapper allocates, then the wgmma GEMM with the
+    ``bf16(x + bf16(bf16(acc) + proj_b))`` epilogue: the value flow of
+    ``qkv_proj_plain`` and of the sequence-parallel block's
+    ``x + (F.linear(out, proj_w) + proj_b)``."""
     b, s, hd3 = qkv3.shape
     hd = hd3 // 3
     tl = s if true_len is None else true_len
@@ -286,11 +291,12 @@ def flash_mha_qkv_proj(qkv3: torch.Tensor, x: torch.Tensor,
                          f" even head count, H*D <= 1024 and Dm % 128 == 0; "
                          f"got H={num_heads}, D={d}, Dm={dm}")
     out = torch.empty_like(x)
+    attn = torch.empty((b, s, hd), dtype=torch.bfloat16, device=x.device)
     lib = _build.library("flash_qkv_proj")
     rc = lib.flash_mha_qkv_proj_bf16(
         qkv3.data_ptr(), x.data_ptr(), proj_w.data_ptr(), proj_b.data_ptr(),
-        out.data_ptr(), b, s, tl, num_heads, d, dm, 1.0 / d**0.5,
-        _build.stream_ptr(x))
+        attn.data_ptr(), out.data_ptr(), b, s, tl, num_heads, d, dm,
+        1.0 / d**0.5, _build.stream_ptr(x))
     _build.check(lib, rc, "flash_mha_qkv_proj")
     _build.LAUNCHES["flash_mha_qkv_proj"] += 1
     return out

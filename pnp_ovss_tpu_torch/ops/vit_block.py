@@ -8,9 +8,10 @@ Counterpart of ``pnp_ovss_tpu/ops/vit_block_pallas.py``:
 
 Weights are in ``nn.Linear`` layout ([out, in]), as the port's modules
 hold them. On a CUDA tensor the wrappers launch the CUDA kernels
-(``csrc/ln_matmul.cu``, ``csrc/ln_mlp_residual.cu``; bf16 in and out) or
-raise; on a CPU tensor they run the plain versions, which follow the
-Pallas bodies' value flow step by step:
+(``csrc/ln_matmul.cu``, ``csrc/ln_mlp_residual.cu``: a row LayerNorm and
+the wgmma GEMM of ``csrc/wgmma_gemm.cuh``; bf16 in and out) or raise; on
+a CPU tensor they run the plain versions, which follow the Pallas bodies'
+value flow step by step:
 
 - K1: f32 two-pass LayerNorm -> compute dtype -> product with f32
   accumulation -> ``+ bias`` in f32 -> one rounding;
@@ -124,16 +125,23 @@ def ln_mlp_residual_plain(x, gamma, beta, w1, b1, w2, b2, *,
 
 
 def _check_norm(name: str, d: int, gamma, beta) -> None:
+    """gamma/beta as the row LayerNorm reads them, and a width it takes:
+    D % 64 == 0 up to 1024 (every width ``supported`` routes here)."""
     for k, t in (("gamma", gamma), ("beta", beta)):
         if t.dtype != torch.float32 or t.shape != (d,):
             raise ValueError(f"{name}: {k} must be float32 of shape ({d},)")
+    if d % 64 or not 0 < d <= 1024:
+        raise ValueError(f"{name}: needs D % 64 == 0 and D <= 1024, got "
+                         f"D={d}")
 
 
 def ln_matmul(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
               w: torch.Tensor, bias: torch.Tensor, *,
               eps: float = 1e-6) -> torch.Tensor:
     """LN(x) @ w^T + bias. x [M, D]; gamma/beta [D] f32; w [N, D];
-    bias [N]. Returns [M, N] in w's dtype."""
+    bias [N]. Returns [M, N] in w's dtype. On the card one call runs two
+    kernels (row LayerNorm, then the wgmma GEMM with the bias epilogue) on
+    the normalised rows [M, D], scratch this wrapper allocates."""
     if x.device.type == "cpu":
         return ln_matmul_plain(x, gamma, beta, w, bias, eps=eps)
     m, d = x.shape
@@ -145,16 +153,17 @@ def ln_matmul(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     if w.shape != (n, d) or bias.shape != (n,):
         raise ValueError(f"ln_matmul: w {tuple(w.shape)} / bias "
                          f"{tuple(bias.shape)} do not match D={d}")
-    if d % 64 or d > 1024 or n % 128:
-        raise ValueError(f"ln_matmul: needs D % 64 == 0, D <= 1024 and "
-                         f"N % 128 == 0, got D={d}, N={n}")
+    if n % 128:
+        raise ValueError(f"ln_matmul: needs N % 128 == 0, got N={n}")
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     if m == 0:
         return out
+    xn = torch.empty_like(x)
     lib = _build.library("ln_matmul")
     rc = lib.ln_matmul_bf16(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr(),
-        bias.data_ptr(), out.data_ptr(), m, d, n, eps, _build.stream_ptr(x))
+        bias.data_ptr(), xn.data_ptr(), out.data_ptr(), m, d, n, eps,
+        _build.stream_ptr(x))
     _build.check(lib, rc, "ln_matmul")
     _build.LAUNCHES["ln_matmul"] += 1
     return out
@@ -182,9 +191,8 @@ def ln_mlp_residual(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
             or b2.shape != (d,)):
         raise ValueError("ln_mlp_residual: weight shapes do not match "
                          f"D={d}, F={f}")
-    if d not in (128, 256, 512, 1024) or f % 32:
-        raise ValueError(f"ln_mlp_residual: needs D in (128, 256, 512, 1024)"
-                         f" and F % 32 == 0, got D={d}, F={f}")
+    if f % 32:
+        raise ValueError(f"ln_mlp_residual: needs F % 32 == 0, got F={f}")
     out = torch.empty_like(x)
     if m == 0:
         return out

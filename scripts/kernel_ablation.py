@@ -1,26 +1,34 @@
 #!/usr/bin/env python3
-"""What bounds the fused ViT kernels K1 (ln_matmul) and K3 (ln_mlp_residual),
-the flash kernel (K2/K7/K9) and the CRF's K8 (gaussian_kernel_matmul) on one
-GPU: each is rebuilt with one part of its work taken out, or with another
-block shape, and timed at its main-path shapes (336 px; the flash kernel
-also at S = 2305 with head dim 64 and 128; K8 at the exact CRF's
-N = M = 36864, C = 58 and C = 1) beside the full kernel.
+"""What bounds the fused ViT kernels K1 (ln_matmul), K3 (ln_mlp_residual)
+and K4 (flash_mha_qkv_proj), the flash kernel (K2/K7/K9) and the CRF's K8
+(gaussian_kernel_matmul) on one GPU: each is rebuilt with one part of its
+work taken out, or with another block shape, and timed at its main-path
+shapes (336 px; K4 at 768 px, B = 12, S = 2305; the flash kernel also at
+S = 2305 with head dim 64 and 128; K8 at the exact CRF's N = M = 36864,
+C = 58 and C = 1) beside the full kernel.
 
     python3 scripts/kernel_ablation.py [--out DIR] [--kernels SRC,...]
 
 Variants (built from the sources in ``pnp_ovss_tpu_torch/csrc`` with a
-textual edit, into ``DIR``; their outputs are wrong by design and only
-their times are read):
+textual edit of the source or of a header it includes, into ``DIR``;
+their outputs are wrong by design and only their times are read):
 
-- K1: ``no_ln`` skips the LayerNorm pass, ``no_mma`` replaces the
-  tensor-core products by a register update, ``no_w_loads`` stops
-  streaming W tiles (the product reads stale shared memory);
+- K1 (two kernels a call: LayerNorm, then the wgmma GEMM with the bias
+  epilogue): ``no_ln`` runs the GEMM alone (on rows normalised
+  beforehand), ``no_ln_no_epilogue`` the GEMM alone with its epilogue
+  warps skipping their work (nothing is stored);
 - K3 (three kernels a call: LayerNorm, fc1 + gelu, fc2 + residual):
   ``no_gelu`` stores fc1's rounded output without the gelu,
-  ``no_epilogue`` has both GEMMs' epilogue warpgroup skip its work
-  (nothing is stored),
+  ``no_epilogue`` has both GEMMs' epilogue warps skip their work,
+  ``fc2_rows4`` keeps 4 rows of fc2's residual in flight in place of 2
+  (outputs right),
   ``no_tma`` has the producer arrive on each stage without loading it (the
   products read stale shared memory), so the wgmma loop runs alone;
+- K4 (two kernels a call: the flash kernel, then the wgmma GEMM with the
+  proj + residual epilogue): ``attention_only`` and ``proj_only`` run one
+  of the two (the proj on head outputs of an earlier full call);
+  ``proj_only_rows2`` / ``_rows8`` the proj with 2 or 8 rows of the
+  residual in flight per epilogue thread in place of 4 (outputs right);
 - flash kernel (outputs stay right), each at one head dim (``d64_`` /
   ``d128_``): ``minbN`` caps registers for N blocks an SM in place of 4
   (D = 64) or 3 (D = 128), ``rb2`` gives each warp two blocks of 16 query
@@ -36,7 +44,8 @@ their times are read):
   does, so its time includes the copy of the values into v^T.
 
 Also times cuBLAS on K1's product alone (``F.linear`` on the normalised
-rows) as a yardstick. Prints the card's name and power limit first.
+rows) and on K4's proj product alone (``F.linear`` on the head outputs)
+as yardsticks. Prints the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -57,43 +66,63 @@ _NO_MMA = ("namespace {", "namespace {\n"
            "const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {\n"
            "  d[0] += __uint_as_float(a[0] ^ b0 ^ b1);\n}")
 
+# An edit is (old, new) in the source itself or (header, old, new) in a
+# header it includes from csrc/.
+_GEMM = "wgmma_gemm.cuh"
+_FLASH = "flash_kernel.cuh"
+_NO_EPILOGUE = (_GEMM, "for (int row = etid / (kBN / 8); row < kBM;",
+                "for (int row = kBM; row < kBM;")
+_PROJ_ONLY = ("int err = pnp::flash::launch_flat(",
+              "int err = 0;\n  if (0)\n    err = pnp::flash::launch_flat(")
+_NO_LN = ("int err = gm::launch_layer_norm(x, gamma, beta, xn, M, D, eps, "
+          "st);", "int err = 0;")
+
 VARIANTS = {
     "ln_matmul": {
         "full": [],
-        "no_ln": [("  pnp::layer_norm_rows(xs, ldx, kBM, D, gamma, beta, "
-                   "eps, warp,\n                       kThreads / 32, lane);",
-                   "")],
-        "no_mma": [_NO_MMA, ("pnp::mma_bf16_16816(acc", "no_mma(acc")],
-        "no_w_loads": [("    if (it < total)\n      pnp::load_w_tile",
-                        "    if (it < 0)\n      pnp::load_w_tile")],
+        "no_ln": [_NO_LN],
+        "no_ln_no_epilogue": [_NO_LN, _NO_EPILOGUE],
     },
     "ln_mlp_residual": {
         "full": [],
         "no_gelu": [("o[i] = pnp::pack_bf16x2(gelu_bf16(f.x), "
                      "gelu_bf16(f.y));", "o[i] = y[i];")],
-        "no_epilogue": [("for (int row = etid / (kBN / 8); row < kBM;",
-                         "for (int row = kBM; row < kBM;")],
-        "no_tma": [("hw::mbar_expect_tx(&full[stage], kStageBytes);",
-                    "hw::mbar_arrive(&full[stage]);"),
-                   ("hw::tma_load_2d(a_tile(stage)", "if (0) hw::tma_load_2d("
-                    "a_tile(stage)"),
-                   ("hw::tma_load_2d(b_tile(stage)", "if (0) hw::tma_load_2d("
-                    "b_tile(stage)")],
+        "no_epilogue": [_NO_EPILOGUE],
+        "fc2_rows4": [("static constexpr int kRows = 2;\n  static __device__ "
+                       "__forceinline__ uint4 load(\n      const",
+                       "static constexpr int kRows = 4;\n  static __device__ "
+                       "__forceinline__ uint4 load(\n      const")],
+        "no_tma": [(_GEMM, "hopper::mbar_expect_tx(&full[stage], "
+                    "kStageBytes);", "hopper::mbar_arrive(&full[stage]);"),
+                   (_GEMM, "hopper::tma_load_2d(a_tile(stage)",
+                    "if (0) hopper::tma_load_2d(a_tile(stage)"),
+                   (_GEMM, "hopper::tma_load_2d(b_tile(stage)",
+                    "if (0) hopper::tma_load_2d(b_tile(stage)")],
+    },
+    "flash_qkv_proj": {
+        "full": [],
+        "attention_only": [("  if (err == 0)\n    err = "
+                            "qkv_proj_residual_bf16(",
+                            "  if (0)\n    err = qkv_proj_residual_bf16(")],
+        "proj_only": [_PROJ_ONLY],
+        "proj_only_rows2": [_PROJ_ONLY, ("kRows = 4;", "kRows = 2;")],
+        "proj_only_rows8": [_PROJ_ONLY, ("kRows = 4;", "kRows = 8;")],
     },
     "flash_attention": {
         "full": [],
-        "d64_minb3": [("kMinBlocksD64 = 4", "kMinBlocksD64 = 3")],
-        "d64_rb2": [("kRowBlocksD64 = 1", "kRowBlocksD64 = 2"),
-                    ("kMinBlocksD64 = 4", "kMinBlocksD64 = 2")],
-        "d64_rb2_minb3": [("kRowBlocksD64 = 1", "kRowBlocksD64 = 2"),
-                          ("kMinBlocksD64 = 4", "kMinBlocksD64 = 3")],
-        "d64_warps8": [("kWarpsD64 = 4", "kWarpsD64 = 8"),
-                       ("kMinBlocksD64 = 4", "kMinBlocksD64 = 2")],
-        "d64_stages3": [("kStagesD64 = 2", "kStagesD64 = 3")],
-        "d128_minb3": [("kMinBlocksD128 = 2", "kMinBlocksD128 = 3")],
-        "d128_warps8": [("kWarpsD128 = 4", "kWarpsD128 = 8"),
-                        ("kMinBlocksD128 = 2", "kMinBlocksD128 = 1")],
-        "d128_stages3": [("kStagesD128 = 2", "kStagesD128 = 3")],
+        "d64_minb3": [(_FLASH, "kMinBlocksD64 = 4", "kMinBlocksD64 = 3")],
+        "d64_rb2": [(_FLASH, "kRowBlocksD64 = 1", "kRowBlocksD64 = 2"),
+                    (_FLASH, "kMinBlocksD64 = 4", "kMinBlocksD64 = 2")],
+        "d64_rb2_minb3": [
+            (_FLASH, "kRowBlocksD64 = 1", "kRowBlocksD64 = 2"),
+            (_FLASH, "kMinBlocksD64 = 4", "kMinBlocksD64 = 3")],
+        "d64_warps8": [(_FLASH, "kWarpsD64 = 4", "kWarpsD64 = 8"),
+                       (_FLASH, "kMinBlocksD64 = 4", "kMinBlocksD64 = 2")],
+        "d64_stages3": [(_FLASH, "kStagesD64 = 2", "kStagesD64 = 3")],
+        "d128_minb3": [(_FLASH, "kMinBlocksD128 = 2", "kMinBlocksD128 = 3")],
+        "d128_warps8": [(_FLASH, "kWarpsD128 = 4", "kWarpsD128 = 8"),
+                        (_FLASH, "kMinBlocksD128 = 2", "kMinBlocksD128 = 1")],
+        "d128_stages3": [(_FLASH, "kStagesD128 = 2", "kStagesD128 = 3")],
     },
     "crf_matmul": {
         "full": [],
@@ -119,28 +148,34 @@ VARIANTS = {
 
 
 def build(out_dir: str, sources):
-    """Compile every variant of ``sources`` in parallel. Returns
-    {(kernel, variant): lib}."""
+    """Compile every variant of ``sources`` in parallel, each in its own
+    directory beside its edited headers (a quoted include finds them
+    before csrc/'s). Returns {(kernel, variant): lib}."""
     from pnp_ovss_tpu_torch.ops import _build
 
     procs = {}
     for src in sources:
-        variants = VARIANTS[src]
-        text = (_build.CSRC / f"{src}.cu").read_text()
-        for name, edits in variants.items():
-            s = text
-            for old, new in edits:
-                if old not in s:
-                    raise SystemExit(f"{src}/{name}: edit target not found")
-                s = s.replace(old, new)
-            cu = os.path.join(out_dir, f"{src}_{name}.cu")
-            so = cu[:-3] + ".so"
-            with open(cu, "w") as f:
-                f.write(s)
+        for name, edits in VARIANTS[src].items():
+            files = {f"{src}.cu": None}
+            for edit in edits:
+                fname, old, new = edit if len(edit) == 3 else (
+                    f"{src}.cu", *edit)
+                text = files.get(fname) or (_build.CSRC / fname).read_text()
+                if old not in text:
+                    raise SystemExit(f"{src}/{name}: edit target not found "
+                                     f"in {fname}")
+                files[fname] = text.replace(old, new)
+            vdir = os.path.join(out_dir, f"{src}_{name}")
+            os.makedirs(vdir, exist_ok=True)
+            for fname, text in files.items():
+                with open(os.path.join(vdir, fname), "w") as f:
+                    f.write(text or (_build.CSRC / fname).read_text())
+            so = os.path.join(vdir, f"{src}.so")
             procs[(src, name)] = (subprocess.Popen(
                 [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-                 "-o", so, cu], stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True), so)
+                 "-o", so, os.path.join(vdir, f"{src}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), so)
     libs = {}
     for key, (proc, so) in procs.items():
         log, _ = proc.communicate()
@@ -198,7 +233,10 @@ def main() -> int:
     w1, b1 = randn(f, d, scale=d**-0.5), randn(f, scale=0.02)
     w2, b2 = randn(d, f, scale=f**-0.5), randn(d, scale=0.02)
     y = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
-    z, xn = torch.empty_like(x), torch.empty_like(x)
+    z = torch.empty_like(x)
+    # K1's and K3's LayerNorm scratch, holding the normalised rows for the
+    # variants that run K1's GEMM alone.
+    xn = vit_block.layer_norm_f32(x, g, b, 1e-6).to(torch.bfloat16)
     hidden = torch.empty((m, f), dtype=torch.bfloat16, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -229,8 +267,15 @@ def main() -> int:
                for c in (58, 1)}
     k8_ref = {c: bilateral.gaussian_kernel_matmul(feats, v)
               for c, v in k8_vals.items()}
-    print(f"336 px main-path shapes: M={m}, D={d}, N={n}, F={f}; K8 N=M="
-          f"{feats.shape[0]}", flush=True)
+    # K4 at the 768 px leg: its qkv, residual, proj weights, head-output
+    # scratch (written by the full variant, read by proj_only) and output.
+    pb_, ps_ = 12, 2305
+    pqkv, px = randn(pb_, ps_, 3 * d), randn(pb_, ps_, d, scale=0.1)
+    pw, pbias = randn(d, d, scale=d**-0.5), randn(d, scale=0.02)
+    pattn = torch.empty((pb_, ps_, d), dtype=torch.bfloat16, device=dev)
+    pout = torch.empty_like(px)
+    print(f"336 px main-path shapes: M={m}, D={d}, N={n}, F={f}; K4 B="
+          f"{pb_} S={ps_}; K8 N=M={feats.shape[0]}", flush=True)
     for (src, name), lib in libs.items():
         if src == "crf_matmul":
             fn = lib.gaussian_kernel_matmul
@@ -268,12 +313,31 @@ def main() -> int:
                       f"{4.0 * fb * fh * fs * fs * fd / ms / 1e9:.1f} "
                       "TFLOP/s)", flush=True)
             continue
+        if src == "flash_qkv_proj":
+            fn = lib.flash_mha_qkv_proj_bf16
+            fn.argtypes = [P] * 6 + [I] * 6 + [Fl, P]
+            hh, hd_ = vit.num_heads, vit.head_dim
+            call = (lambda fn=fn: fn(
+                pqkv.data_ptr(), px.data_ptr(), pw.data_ptr(),
+                pbias.data_ptr(), pattn.data_ptr(), pout.data_ptr(), pb_,
+                ps_, ps_, hh, hd_, d, hd_**-0.5, stream))
+            if call() != 0:
+                raise SystemExit(f"{src} {name}: launch failed")
+            ms = chip_smoke.time_ms(call, 10)
+            att = 4.0 * pb_ * hh * ps_ * ps_ * hd_
+            proj = 2.0 * pb_ * ps_ * d * d
+            print(f"{src} {name}: {ms:.4f} ms ({att / 1e9:.0f} GFLOP of "
+                  f"attention, {proj / 1e9:.0f} of proj; "
+                  f"{(att + proj) / ms / 1e9:.1f} TFLOP/s of the full "
+                  "kernel's work)", flush=True)
+            continue
         if src == "ln_matmul":
             fn = lib.ln_matmul_bf16
-            fn.argtypes = [P] * 6 + [I] * 3 + [Fl, P]
+            fn.argtypes = [P] * 7 + [I] * 3 + [Fl, P]
             call = (lambda fn=fn: fn(
                 x.data_ptr(), g.data_ptr(), b.data_ptr(), w.data_ptr(),
-                bias.data_ptr(), y.data_ptr(), m, d, n, 1e-6, stream))
+                bias.data_ptr(), xn.data_ptr(), y.data_ptr(), m, d, n, 1e-6,
+                stream))
             flops = 2.0 * m * d * n
         else:
             fn = lib.ln_mlp_residual_bf16
@@ -292,6 +356,11 @@ def main() -> int:
     ms = chip_smoke.time_ms(lambda: F.linear(h, w), 10)
     print(f"cuBLAS F.linear of K1's product alone: {ms:.4f} ms "
           f"({2.0 * m * d * n / ms / 1e9:.1f} TFLOP/s)", flush=True)
+    if "flash_qkv_proj" in sources:
+        ms = chip_smoke.time_ms(lambda: F.linear(pattn, pw), 10)
+        print(f"cuBLAS F.linear of K4's proj product alone: {ms:.4f} ms "
+              f"({2.0 * pb_ * ps_ * d * d / ms / 1e9:.1f} TFLOP/s)",
+              flush=True)
     return 0
 
 

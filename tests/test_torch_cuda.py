@@ -292,19 +292,65 @@ def _norm_params(gen, d):
 BF16_TOL = dict(rtol=1e-2, atol=1e-2)
 
 
-@pytest.mark.parametrize("m,d,n", [(300, 128, 384), (77, 256, 128),
-                                   (1001, 1024, 3072)])
+@pytest.mark.parametrize("n", ["128", "384", "3d"])
+@pytest.mark.parametrize("d", [128, 256, 768, 1024])
+@pytest.mark.parametrize("m", [1, 127, 129, 15470])
 def test_ln_matmul_kernel_matches_plain(cuda, m, d, n):
-    gen = torch.Generator(device=cuda).manual_seed(5)
+    """K1 (row LayerNorm, then the wgmma GEMM with the bias epilogue) at
+    one row, on both sides of one 128-row tile and at the 336 px main
+    path's M = 35 x 442; widths up to ViT-L's, N = 128, 384 and the qkv
+    projection's 3 D. One bf16 rounding after sums taken in another order
+    (and the LayerNorm's in another order too): BF16_TOL."""
+    n = 3 * d if n == "3d" else int(n)
+    gen = torch.Generator(device=cuda).manual_seed(15)
     x = _randn(gen, m, d).to(torch.bfloat16)
     g, b = _norm_params(gen, d)
     w = (_randn(gen, n, d) / d**0.5).to(torch.bfloat16)
     bias = (0.1 * _randn(gen, n)).to(torch.bfloat16)
-    before = _build.LAUNCHES["ln_matmul"]
+    before = dict(_build.LAUNCHES)
     out = vit_block.ln_matmul(x, g, b, w, bias)
-    assert _build.LAUNCHES["ln_matmul"] == before + 1
+    assert _build.LAUNCHES == {**before,
+                               "ln_matmul": before["ln_matmul"] + 1}
     ref = vit_block.ln_matmul_plain(x, g, b, w, bias, eps=1e-6)
     torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+
+
+@pytest.mark.parametrize("d", [64, 192])
+def test_ln_kernels_take_every_64_multiple(cuda, d):
+    """K1 and K3 take D % 64 == 0 (K1's contract), not only the
+    128-multiples that ``vit_block.supported`` routes to them."""
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    m, f = 129, 4 * d
+    x = _randn(gen, m, d).to(torch.bfloat16)
+    g, b = _norm_params(gen, d)
+    w = (_randn(gen, 384, d) / d**0.5).to(torch.bfloat16)
+    bias = (0.1 * _randn(gen, 384)).to(torch.bfloat16)
+    torch.testing.assert_close(
+        vit_block.ln_matmul(x, g, b, w, bias).float(),
+        vit_block.ln_matmul_plain(x, g, b, w, bias, eps=1e-6).float(),
+        **BF16_TOL)
+    w1 = (_randn(gen, f, d) / d**0.5).to(torch.bfloat16)
+    b1 = (0.1 * _randn(gen, f)).to(torch.bfloat16)
+    w2 = (_randn(gen, d, f) / f**0.5).to(torch.bfloat16)
+    b2 = (0.1 * _randn(gen, d)).to(torch.bfloat16)
+    torch.testing.assert_close(
+        vit_block.ln_mlp_residual(x, g, b, w1, b1, w2, b2).float(),
+        vit_block.ln_mlp_residual_plain(x, g, b, w1, b1, w2, b2,
+                                        eps=1e-6).float(), **BF16_TOL)
+
+
+def test_ln_kernels_refuse_widths_above_1024(cuda):
+    d = 1088
+    x = torch.zeros(8, d, device=cuda, dtype=torch.bfloat16)
+    g = torch.ones(d, device=cuda)
+    w = torch.zeros(128, d, device=cuda, dtype=torch.bfloat16)
+    bias = torch.zeros(128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        vit_block.ln_matmul(x, g, g, w, bias)
+    w1 = torch.zeros(256, d, device=cuda, dtype=torch.bfloat16)
+    w2 = torch.zeros(d, 256, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        vit_block.ln_mlp_residual(x, g, g, w1, w1[:, 0], w2, w2[:, 0])
 
 
 @pytest.mark.parametrize("m,d,f", [(77, 128, 512), (300, 256, 1024),
@@ -327,10 +373,11 @@ def test_ln_mlp_residual_kernel_matches_plain(cuda, m, d, f):
 
 
 @pytest.mark.parametrize("m", [1, 127, 15470])
-@pytest.mark.parametrize("d", [128, 256, 512, 1024])
+@pytest.mark.parametrize("d", [128, 256, 384, 512, 640, 768, 896, 1024])
 def test_ln_mlp_residual_kernel_every_width(cuda, d, m):
-    """K3 at every width it takes, at one row, at a row count below one
-    128-row tile and at the 336 px main path's M = 35 x 442, F = 4 D.
+    """K3 at every width ``vit_block.supported`` routes to it (D % 128 ==
+    0 up to 1024), at one row, at a row count below one 128-row tile and
+    at the 336 px main path's M = 35 x 442, F = 4 D.
     The MLP output is rounded to bf16 before x is added, and the kernel
     sums it in another order than the plain version: where it lands one
     ulp apart at |out| in [4, 8) and x nearly cancels it, the result
@@ -388,24 +435,35 @@ def test_gelu_kernel_matches_plain_on_every_code(cuda):
 
 @pytest.mark.parametrize("b,s,h,d,dm,true_len", [
     (2, 300, 4, 64, 256, 260), (1, 577, 2, 64, 128, None),
-    (2, 200, 2, 128, 256, 171), (1, 130, 16, 64, 1024, None)])
+    (2, 200, 2, 128, 256, 171), (1, 130, 16, 64, 1024, None),
+    (12, 2305, 16, 64, 1024, None)])
 def test_qkv_proj_kernel_matches_plain(cuda, b, s, h, d, dm, true_len):
-    """Several 64-key tiles, keys >= true_len masked, head dim 128 and
-    the 16 heads of ViT-L; rows >= true_len are garbage by contract."""
+    """Several 64-key tiles, keys >= true_len masked, head dim 128, the 16
+    heads of ViT-L and the 768 px main path's shape; rows >= true_len are
+    garbage by contract. Within BF16_TOL of the plain version, and equal
+    bit for bit to the card's K2 followed by the sequence-parallel block's
+    ``x + (F.linear(out, Wp) + bp)``: K4's head outputs come from K2's
+    kernel, and its proj sums in cuBLAS's k order and rounds where the
+    block rounds. One K4 launch is counted, and no K2 launch."""
     gen = torch.Generator(device=cuda).manual_seed(7)
     qkv = _randn(gen, b, s, 3 * h * d).to(torch.bfloat16)
     x = _randn(gen, b, s, dm).to(torch.bfloat16)
     pw = (_randn(gen, dm, h * d) / (h * d)**0.5).to(torch.bfloat16)
     pb = (0.1 * _randn(gen, dm)).to(torch.bfloat16)
-    before = _build.LAUNCHES["flash_mha_qkv_proj"]
+    before = dict(_build.LAUNCHES)
     out = flash_attention.flash_mha_qkv_proj(qkv, x, pw, pb, num_heads=h,
                                              true_len=true_len)
-    assert _build.LAUNCHES["flash_mha_qkv_proj"] == before + 1
+    assert _build.LAUNCHES == {
+        **before, "flash_mha_qkv_proj": before["flash_mha_qkv_proj"] + 1}
     tl = true_len or s
     ref = flash_attention.qkv_proj_plain(qkv, x, pw, pb, num_heads=h,
                                          true_len=tl)
     torch.testing.assert_close(out[:, :tl].float(), ref[:, :tl].float(),
                                **BF16_TOL)
+    heads = flash_attention.flash_mha_flat_qkv(qkv, num_heads=h,
+                                               true_len=true_len)
+    split = x + (torch.nn.functional.linear(heads, pw) + pb)
+    assert torch.equal(out[:, :tl], split[:, :tl])
 
 
 def test_fused_kernels_refuse_f32(cuda):
