@@ -124,6 +124,72 @@ def check(name: str, err: float, tol: float) -> None:
         raise SystemExit(f"FAIL: {name} max_abs_err {err} > {tol}")
 
 
+def with_rate(row: dict, nbytes: float) -> dict:
+    """``row`` with the achieved memory rate of its ``ms`` over the
+    ``nbytes`` its bound counts (GB/s)."""
+    row["gb_per_s"] = nbytes / (row["ms"] * 1e-3) / 1e9
+    return row
+
+
+def crf_features(cfg, gen):
+    """K5's inputs as the CRF makes them once per image: N = bucket^2
+    pixel features against M = (bucket/s)^2 strided anchors, scaled for a
+    VOC image as the runner scales them, xy_scale = (bucket/gt_w,
+    bucket/gt_h)."""
+    import torch
+
+    from pnp_ovss_tpu_torch.ops.crf import bilateral_features
+
+    hb, sub = BUCKET, cfg.postprocess.bilateral_subsample
+    crf_cfg = cfg.postprocess.crf
+    gt_h, gt_w = GT_SIZES[0]
+    dev = gen.device
+    rgb = torch.randint(0, 256, (hb, hb, 3), generator=gen, device=dev)
+    scale = torch.tensor([hb / gt_w, hb / gt_h], device=dev)
+    feats = bilateral_features(rgb.float(), crf_cfg.bi_xy_std * scale,
+                               crf_cfg.bi_rgb_std)
+    feats_j = feats.reshape(hb, hb, 5)[::sub, ::sub].reshape(-1, 5)
+    return feats_j, feats
+
+
+def crf_iteration_args(cfg, kt, gen):
+    """K6's inputs as the CRF makes them once per image and iteration, on
+    K5's ``kt``: v = 2 unary variants (round-0 and aggregated maps) of
+    c = max_classes + 1 channels (background added), rows padded to a 16
+    multiple as crf.py packs them. Returns ((qsub, kt, u_neg, msp, nb),
+    v, c)."""
+    import torch
+    from torch.nn import functional as F
+
+    from pnp_ovss_tpu_torch.ops import bilateral
+
+    hb, sub = BUCKET, cfg.postprocess.bilateral_subsample
+    crf_cfg = cfg.postprocess.crf
+    m_pad, n = kt.shape
+    m = (-(-hb // sub)) ** 2
+    vv, c = 2, cfg.max_classes + 1
+    r = -(-(vv * c) // 16) * 16
+
+    def anchors(x):  # [rows, N] -> [rows, M] at the strided anchors
+        return x.reshape(-1, hb, hb)[:, ::sub, ::sub].reshape(x.shape[0], -1)
+
+    q255 = bilateral.KT_QUANT_SCALE
+    norm_bi = torch.rsqrt(
+        (kt.sum(dim=0, dtype=torch.float32)[None] / q255).clamp(min=1e-20))
+    nb = crf_cfg.bi_w / q255 * norm_bi
+    probs = torch.softmax(torch.randn((vv, c, n), generator=gen,
+                                      device=gen.device),
+                          dim=1).reshape(vv * c, n)
+    rows_pad = (0, 0, 0, r - vv * c)
+    state = F.pad(probs, rows_pad)
+    qsub = F.pad(anchors(state) * anchors(norm_bi),
+                 (0, m_pad - m)).to(torch.bfloat16)
+    u_neg = F.pad(torch.log(probs.clamp(1e-5, 1.0)), rows_pad) \
+        .to(torch.bfloat16)
+    msp = (crf_cfg.pos_w * state).to(torch.bfloat16)
+    return (qsub, kt, u_neg, msp, nb), vv, c
+
+
 def kernels_vs_plain(cfg):
     """Phase 3, at the shapes the main path of ``cfg`` gives each kernel.
     Returns {kernel name: row of the kernels line}."""
@@ -131,7 +197,6 @@ def kernels_vs_plain(cfg):
     from torch.nn import functional as F
 
     from pnp_ovss_tpu_torch.ops import bilateral, flash_attention
-    from pnp_ovss_tpu_torch.ops.crf import bilateral_features
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -174,7 +239,7 @@ def kernels_vs_plain(cfg):
     qh, kh_, vh = (x.view(b, s, h, d).transpose(1, 2) for x in (q, k, v))
     nbytes = qkv.numel() * 2 + b * s * hd * 2
     bms, by = bound_ms(nbytes, 4.0 * b * h * s * s * d, BF16_FLOPS)
-    rows["flash_mha_flat_qkv"] = dict(
+    rows["flash_mha_flat_qkv"] = with_rate(dict(
         name="flash_mha_flat_qkv", route="cuda",
         source="pnp_ovss_tpu_torch/csrc/flash_attention.cu",
         replaces="pnp_ovss_tpu/ops/flash_attention.py:325",
@@ -185,26 +250,21 @@ def kernels_vs_plain(cfg):
             q, k, v, num_heads=h, true_len=s, out_dtype=torch.bfloat16), 5),
         bound_ms=bms, bound_by=by,
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh_, vh), 20))
+            qh, kh_, vh), 20)), nbytes)
 
-    # K5 as the CRF calls it, once per image: N = bucket^2 pixels against
-    # M = (bucket/s)^2 strided anchors, features scaled for a VOC image as
-    # the runner scales them, xy_scale = (bucket/gt_w, bucket/gt_h).
-    hb, sub = BUCKET, cfg.postprocess.bilateral_subsample
-    crf_cfg = cfg.postprocess.crf
-    gt_h, gt_w = GT_SIZES[0]
-    rgb = torch.randint(0, 256, (hb, hb, 3), generator=gen, device=dev)
-    scale = torch.tensor([hb / gt_w, hb / gt_h], device=dev)
-    feats = bilateral_features(rgb.float(), crf_cfg.bi_xy_std * scale,
-                               crf_cfg.bi_rgb_std)
-    feats_j = feats.reshape(hb, hb, 5)[::sub, ::sub].reshape(-1, 5)
+    # K5 as the CRF calls it, once per image.
+    feats_j, feats = crf_features(cfg, gen)
     kt = bilateral.gaussian_kernel_materialize(feats_j, feats)
     kt_ref = bilateral.materialize_plain(feats_j, feats, kt.shape[0],
                                          torch.uint8)
     # Codes may differ by one where k*255 sits at a rounding boundary
-    # (the kernel fuses the squared-difference sum).
+    # (the exponent's arithmetic differs from torch.exp's).
     err5 = (kt.int() - kt_ref.int()).abs().max().item()
+    differ = (kt != kt_ref).sum().item() / kt.numel()
+    print(f"  gaussian_kernel_materialize: {differ:.3g} of {kt.numel()} "
+          "codes differ from plain", flush=True)
     check("gaussian_kernel_materialize uint8 vs plain (codes)", err5, 1)
+    del kt_ref
     kf = bilateral.gaussian_kernel_materialize(feats_j, feats,
                                                out_dtype=torch.float32)
     kf_ref = bilateral.materialize_plain(feats_j, feats, kf.shape[0],
@@ -217,42 +277,22 @@ def kernels_vs_plain(cfg):
     if odd.shape[0] % 128 or odd.shape[0] < m - 4 or odd[m - 4:].any():
         raise SystemExit("FAIL: gaussian_kernel_materialize pad rows not 0")
     m_pad = kt.shape[0]
-    bms, by = bound_ms(m_pad * n + (m + n) * 5 * 4, 17.0 * m * n, F32_FLOPS)
-    rows["gaussian_kernel_materialize"] = dict(
+    nbytes = m_pad * n + (m + n) * 5 * 4
+    bms, by = bound_ms(nbytes, 17.0 * m * n, F32_FLOPS)
+    rows["gaussian_kernel_materialize"] = with_rate(dict(
         name="gaussian_kernel_materialize", route="cuda",
         source="pnp_ovss_tpu_torch/csrc/crf_materialize.cu",
         replaces="pnp_ovss_tpu/ops/bilateral_pallas.py:204",
-        max_abs_err=float(err5),
+        max_abs_err=float(err5), codes_differing=differ,
         ms=time_ms(lambda: bilateral.gaussian_kernel_materialize(
             feats_j, feats), 20),
         plain_ms=time_ms(lambda: bilateral.materialize_plain(
             feats_j, feats, m_pad, torch.uint8), 3),
-        bound_ms=bms, bound_by=by, library_ms=None)
+        bound_ms=bms, bound_by=by, library_ms=None), nbytes)
 
-    # K6 as the CRF calls it, once per image and iteration: v = 2 unary
-    # variants (round-0 and aggregated maps) of c = max_classes + 1
-    # channels (background added), rows padded to a 16 multiple as crf.py
-    # packs them.
-    vv, c = 2, cfg.max_classes + 1
-    r = -(-(vv * c) // 16) * 16
-
-    def anchors(x):  # [rows, N] -> [rows, M] at the strided anchors
-        return x.reshape(-1, hb, hb)[:, ::sub, ::sub].reshape(x.shape[0], -1)
-
-    q255 = bilateral.KT_QUANT_SCALE
-    norm_bi = torch.rsqrt(
-        (kt.sum(dim=0, dtype=torch.float32)[None] / q255).clamp(min=1e-20))
-    nb = crf_cfg.bi_w / q255 * norm_bi
-    probs = torch.softmax(torch.randn((vv, c, n), generator=gen, device=dev),
-                          dim=1).reshape(vv * c, n)
-    rows_pad = (0, 0, 0, r - vv * c)
-    state = F.pad(probs, rows_pad)
-    qsub = F.pad(anchors(state) * anchors(norm_bi),
-                 (0, m_pad - m)).to(torch.bfloat16)
-    u_neg = F.pad(torch.log(probs.clamp(1e-5, 1.0)), rows_pad) \
-        .to(torch.bfloat16)
-    msp = (crf_cfg.pos_w * state).to(torch.bfloat16)
-    args = (qsub, kt, u_neg, msp, nb)
+    # K6 as the CRF calls it, once per image and iteration.
+    args, vv, c = crf_iteration_args(cfg, kt, gen)
+    r = args[0].shape[0]
     out6 = bilateral.crf_fused_iteration(*args, v=vv, c=c)
     ref6 = bilateral.crf_iteration_plain(*args, v=vv, c=c,
                                          out_dtype=torch.bfloat16)
@@ -263,7 +303,7 @@ def kernels_vs_plain(cfg):
         raise SystemExit("FAIL: crf_fused_iteration pad rows not 0")
     nbytes = m_pad * n + r * m_pad * 2 + 3 * r * n * 2 + n * 4
     bms, by = bound_ms(nbytes, 2.0 * r * m_pad * n, BF16_FLOPS)
-    rows["crf_fused_iteration"] = dict(
+    rows["crf_fused_iteration"] = with_rate(dict(
         name="crf_fused_iteration", route="cuda",
         source="pnp_ovss_tpu_torch/csrc/crf_iteration.cu",
         replaces="pnp_ovss_tpu/ops/bilateral_pallas.py:320",
@@ -272,7 +312,7 @@ def kernels_vs_plain(cfg):
             *args, v=vv, c=c), 20),
         plain_ms=time_ms(lambda: bilateral.crf_iteration_plain(
             *args, v=vv, c=c, out_dtype=torch.bfloat16), 5),
-        bound_ms=bms, bound_by=by, library_ms=None)
+        bound_ms=bms, bound_by=by, library_ms=None), nbytes)
     for row in rows.values():
         print(f"  {row['name']}: {row['ms']:.4f} ms (plain "
               f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} by "
@@ -363,7 +403,7 @@ def kernel_matmul_check(cfg):
         nbytes = (n + m) * 5 * 4 + m * c * 4 + n * c * 4
         bms, by = bound_ms(nbytes, 17.0 * n * m, F32_FLOPS,
                            (2.0 * n * m * c, BF16_FLOPS))
-        lines.append(dict(
+        lines.append(with_rate(dict(
             name="gaussian_kernel_matmul", route="cuda",
             source="pnp_ovss_tpu_torch/csrc/crf_matmul.cu",
             replaces="pnp_ovss_tpu/ops/bilateral_pallas.py:104",
@@ -373,14 +413,15 @@ def kernel_matmul_check(cfg):
             plain_ms=time_ms(lambda: bilateral.kernel_matmul_plain(
                 fi, vals, fj), 1, warmup=1),
             bound_ms=bms, bound_by=by, library_ms=None,
-            shape=f"{label} N={n} M={m}"))
+            shape=f"{label} N={n} M={m}"), nbytes))
     for row in lines:
         print(f"  gaussian_kernel_matmul {row['shape']}: {row['ms']:.4f} ms "
               f"(plain {row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} by "
               f"{row['bound_by']}, library None)", flush=True)
     row = dict(lines[0])
     row["shapes"] = [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
-                                        "max_abs_err")} for r in lines]
+                                        "max_abs_err", "gb_per_s")}
+                     for r in lines]
     return row
 
 
@@ -476,19 +517,21 @@ def fused_vit_kernels(cfg, cfg768):
                 ("ln_mlp_residual", t3, e3, k3_bytes, 4.0 * m * d * f,
                  "ln_mlp_residual.cu", "vit_block_pallas.py:316")):
             bms, by = bound_ms(nbytes, ops, BF16_FLOPS)
-            row = dict(name=name, route="cuda",
+            row = with_rate(dict(name=name, route="cuda",
                        source=f"pnp_ovss_tpu_torch/csrc/{src}",
                        replaces=f"pnp_ovss_tpu/ops/{rep}", max_abs_err=e,
                        ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=bms,
                        bound_by=by, library_ms=None,
-                       unfused_ms=t["unfused_ms"], shape=f"{label} M={m}")
+                       unfused_ms=t["unfused_ms"], shape=f"{label} M={m}"),
+                            nbytes)
             lines.append(row)
             if label == "336 px":
                 rows[name] = row
             else:  # the 768 px leg's numbers beside the 336 px row's
                 rows[name]["shapes"] = [
                     {k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
-                                       "unfused_ms", "max_abs_err")}
+                                       "unfused_ms", "max_abs_err",
+                                       "gb_per_s")}
                     for r in (rows[name], row)]
         del x
 
@@ -547,7 +590,7 @@ def fused_vit_kernels(cfg, cfg768):
                    lambda: flash_attention.flash_mha_flat_qkv(
                        qkv, num_heads=h), 10),
                proj_ms=time_ms(k4_proj, 10), shape=f"768 px B={b} S={s}")
-    rows["flash_mha_qkv_proj"] = row
+    rows["flash_mha_qkv_proj"] = with_rate(row, nbytes)
     lines.append(row)
     for row in lines:
         parts = (f", attention {row['attention_ms']:.4f} + proj "
@@ -622,7 +665,7 @@ def xlen_and_bhsd_kernels(cfg, cfg768):
                   for t in (k, v))
         nbytes = 2 * (2 * b * chunk * hd + 2 * b * s * hd)
         bms, by = bound_ms(nbytes, 4.0 * b * h * chunk * s * d, BF16_FLOPS)
-        k7.append(dict(
+        k7.append(with_rate(dict(
             name="flash_mha_flat_xlen", route="cuda",
             source="pnp_ovss_tpu_torch/csrc/flash_attention.cu",
             replaces="pnp_ovss_tpu/ops/flash_attention.py:636",
@@ -636,7 +679,7 @@ def xlen_and_bhsd_kernels(cfg, cfg768):
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 qh, kh, vh), 20),
             shape=f"{label} sp={SP} B={b} Sq={chunk} Skv={chunk * SP} "
-                  f"true_kv_len={s}"))
+                  f"true_kv_len={s}"), nbytes))
         del qkv, kv, k, v, q
     k9 = []
     for label, b, hh, s, dd in (
@@ -655,9 +698,9 @@ def xlen_and_bhsd_kernels(cfg, cfg768):
               TOL_FLASH)
         del out, ref
         torch.cuda.synchronize()
-        bms, by = bound_ms(4 * 2 * b * hh * s * dd,
-                           4.0 * b * hh * s * s * dd, BF16_FLOPS)
-        k9.append(dict(
+        nbytes = 4 * 2 * b * hh * s * dd
+        bms, by = bound_ms(nbytes, 4.0 * b * hh * s * s * dd, BF16_FLOPS)
+        k9.append(with_rate(dict(
             name="flash_mha", route="cuda",
             source="pnp_ovss_tpu_torch/csrc/flash_attention.cu",
             replaces="pnp_ovss_tpu/ops/flash_attention.py:713",
@@ -668,7 +711,7 @@ def xlen_and_bhsd_kernels(cfg, cfg768):
             bound_ms=bms, bound_by=by,
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v), 20),
-            shape=f"{label} [{b}, {hh}, {s}, {dd}]"))
+            shape=f"{label} [{b}, {hh}, {s}, {dd}]"), nbytes))
         del qkv, q, k, v
     rows = {}
     for lines in (k7, k9):
@@ -680,7 +723,8 @@ def xlen_and_bhsd_kernels(cfg, cfg768):
         row = dict(lines[0])
         row["shapes"] = [{k: r[k] for k in ("shape", "ms", "plain_ms",
                                             "bound_ms", "library_ms",
-                                            "max_abs_err")} for r in lines]
+                                            "max_abs_err", "gb_per_s")}
+                         for r in lines]
         rows[row["name"]] = row
     return rows
 
@@ -1265,6 +1309,11 @@ def main() -> int:
     rows.update(fused_vit_kernels(cfg, cfg768))
     rows["gaussian_kernel_matmul"] = kernel_matmul_check(cfg)
     rows.update(xlen_and_bhsd_kernels(cfg, cfg768))
+    for row in rows.values():
+        for sh in row.get("shapes", [row]):
+            print(f"  {row['name']} {sh.get('shape', '')}: "
+                  f"{sh['gb_per_s']:.1f} GB/s achieved over the bytes its "
+                  "bound counts", flush=True)
     print(f"  phase 3: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()

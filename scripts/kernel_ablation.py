@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """What bounds the fused ViT kernels K1 (ln_matmul), K3 (ln_mlp_residual)
-and K4 (flash_mha_qkv_proj), the flash kernel (K2/K7/K9) and the CRF's K8
+and K4 (flash_mha_qkv_proj), the flash kernel (K2/K7/K9) and the CRF's K5
+(gaussian_kernel_materialize), K6 (crf_fused_iteration) and K8
 (gaussian_kernel_matmul) on one GPU: each is rebuilt with one part of its
 work taken out, or with another block shape, and timed at its main-path
 shapes (336 px; K4 at 768 px, B = 12, S = 2305; the flash kernel also at
-S = 2305 with head dim 64 and 128; K8 at the exact CRF's N = M = 36864,
-C = 58 and C = 1) beside the full kernel.
+S = 2305 with head dim 64 and 128; K5 and K6 at chip_smoke.py's shapes,
+M = 2304 anchors, N = 36864 pixels, R = 64, v = 2, c = 29; K8 at the
+exact CRF's N = M = 36864, C = 58 and C = 1) beside the full kernel.
 
     python3 scripts/kernel_ablation.py [--out DIR] [--kernels SRC,...]
 
@@ -41,7 +43,22 @@ their outputs are wrong by design and only their times are read):
   ``warps3``, ``warps4`` and ``warps8`` give a block 3, 4 or 8 warps of
   16 rows in place of 6, ``bj32`` stages 32 columns in place of 64.
   Each K8 call goes through ``bilateral.launch_matmul``, as the wrapper's
-  does, so its time includes the copy of the values into v^T.
+  does, so its time includes the copy of the values into v^T;
+- K5 (uint8 kind; codes are compared with the plain version's): ``expf``
+  takes the exponent as expf(-d2/2) * 255 in place of one ex2.approx over
+  prescaled features, ``f2i`` rounds with F2I.RN in place of the magic
+  number, ``expf_f2i`` both (the arithmetic of the kernel before its
+  redesign); ``rows64`` gives a block 64 rows in place of 32, ``minb1``
+  lifts the register cap for 4 blocks an SM;
+- K6: ``no_dequant`` feeds the raw bytes to the products as bf16 bits,
+  ``no_mma`` replaces the products by a register update, ``mma_x2``
+  issues each product twice, ``no_epilogue`` skips the energy, softmax
+  and stores (the result is still staged); ``no_k_loads`` / ``no_q_loads``
+  / ``no_loads`` skip the K^T box loads, the qsub box loads or both
+  (stale tiles); ``stages3`` / ``stages6`` a ring of 3 or 6 stages in
+  place of 4, ``wg2`` / ``wg2_stages3`` blocks of two warpgroups (256-column
+  slabs sharing one qsub tile) in place of one (outputs right). The same
+  call is timed at R = 16, 32 and 48 state rows.
 
 Also times cuBLAS on K1's product alone (``F.linear`` on the normalised
 rows) and on K4's proj product alone (``F.linear`` on the head outputs)
@@ -76,6 +93,13 @@ _PROJ_ONLY = ("int err = pnp::flash::launch_flat(",
               "int err = 0;\n  if (0)\n    err = pnp::flash::launch_flat(")
 _NO_LN = ("int err = gm::launch_layer_norm(x, gamma, beta, xn, M, D, eps, "
           "st);", "int err = 0;")
+
+# K6: its product call; the K^T or qsub box loads skipped, with the
+# stage's barrier told to expect only what is still loaded.
+_K6_WGMMA = "wgmma_m64n64k16_rs(acc[i], a[s][i], db + 2 * s);"
+_K6_EXPECT = "pnp::hopper::mbar_expect_tx(&full[slot], kStageBytes);"
+_K6_TMA_Q = "pnp::hopper::tma_load_2d(q_tile(slot), &tm_q,"
+_K6_TMA_K = "pnp::hopper::tma_load_2d(smem + slot * kStageBytes + kQTile"
 
 VARIANTS = {
     "ln_matmul": {
@@ -123,6 +147,41 @@ VARIANTS = {
         "d128_warps8": [(_FLASH, "kWarpsD128 = 4", "kWarpsD128 = 8"),
                         (_FLASH, "kMinBlocksD128 = 2", "kMinBlocksD128 = 1")],
         "d128_stages3": [(_FLASH, "kStagesD128 = 2", "kStagesD128 = 3")],
+    },
+    "crf_materialize": {
+        "full": [],
+        "expf": [("kExp2 = true;", "kExp2 = false;")],
+        "f2i": [("kMagicRound = true;", "kMagicRound = false;")],
+        "expf_f2i": [("kExp2 = true;", "kExp2 = false;"),
+                     ("kMagicRound = true;", "kMagicRound = false;")],
+        "rows64": [("kRowsPerBlock = 32;", "kRowsPerBlock = 64;")],
+        "minb1": [("kMinBlocks = 4;", "kMinBlocks = 1;")],
+    },
+    "crf_iteration": {
+        "full": [],
+        "no_dequant": [("return pnp::pack_bf16x2(flo, fhi);",
+                        "return __byte_perm(lo, hi, 0x5140 + j);")],
+        "no_mma": [(_K6_WGMMA, "acc[i][0] += __uint_as_float(a[s][i][0] ^ "
+                    "a[s][i][1] ^ a[s][i][2] ^ a[s][i][3]);")],
+        "mma_x2": [(_K6_WGMMA, "{\n          " + _K6_WGMMA + "\n          "
+                    + _K6_WGMMA + "\n        }")],
+        "no_epilogue": [("if (n >= N) return;", "if (n >= 0) return;")],
+        "no_k_loads": [
+            (_K6_EXPECT, _K6_EXPECT.replace("kStageBytes", "kQTile")),
+            (_K6_TMA_K, "if (0) " + _K6_TMA_K)],
+        "no_q_loads": [
+            (_K6_EXPECT, _K6_EXPECT.replace("kStageBytes",
+                                            "kWarpgroups * kKTile")),
+            (_K6_TMA_Q, "if (0) " + _K6_TMA_Q)],
+        "no_loads": [
+            (_K6_EXPECT, "pnp::hopper::mbar_arrive(&full[slot]);"),
+            (_K6_TMA_Q, "if (0) " + _K6_TMA_Q),
+            (_K6_TMA_K, "if (0) " + _K6_TMA_K)],
+        "stages3": [("kStages = 4;", "kStages = 3;")],
+        "stages6": [("kStages = 4;", "kStages = 6;")],
+        "wg2": [("kWarpgroups = 1;", "kWarpgroups = 2;")],
+        "wg2_stages3": [("kWarpgroups = 1;", "kWarpgroups = 2;"),
+                        ("kStages = 4;", "kStages = 3;")],
     },
     "crf_matmul": {
         "full": [],
@@ -274,9 +333,68 @@ def main() -> int:
     pw, pbias = randn(d, d, scale=d**-0.5), randn(d, scale=0.02)
     pattn = torch.empty((pb_, ps_, d), dtype=torch.bfloat16, device=dev)
     pout = torch.empty_like(px)
+    # K5 and K6 at chip_smoke.py's shapes; K^T from the port's own K5.
+    fj5, fi5 = chip_smoke.crf_features(cfg, gen)
+    m5, n5 = fj5.shape[0], fi5.shape[0]
+    kt = bilateral.gaussian_kernel_materialize(fj5, fi5)
+    m_pad5 = kt.shape[0]
+    kt_plain = bilateral.materialize_plain(fj5, fi5, m_pad5, torch.uint8)
+    kt_out = torch.empty_like(kt)
+    k6_args, k6_v, k6_c = chip_smoke.crf_iteration_args(cfg, kt, gen)
+    k6_r = k6_args[0].shape[0]
+    k6_plain = bilateral.crf_iteration_plain(*k6_args, v=k6_v, c=k6_c,
+                                             out_dtype=torch.bfloat16)
+    k6_out = torch.empty_like(k6_plain)
+    if "crf_iteration" in sources:
+        ms = chip_smoke.time_ms(lambda: kt.view(torch.int64).sum(), 20)
+        print(f"torch read of K^T (int64 sum over its {kt.numel()} bytes): "
+              f"{ms:.4f} ms ({kt.numel() / ms / 1e6:.1f} GB/s)", flush=True)
     print(f"336 px main-path shapes: M={m}, D={d}, N={n}, F={f}; K4 B="
           f"{pb_} S={ps_}; K8 N=M={feats.shape[0]}", flush=True)
     for (src, name), lib in libs.items():
+        if src == "crf_materialize":
+            fn = lib.gaussian_kernel_materialize
+            fn.argtypes = [P, P, P, I, I, I, I, I, P]
+            call = (lambda fn=fn: fn(
+                fj5.data_ptr(), fi5.data_ptr(), kt_out.data_ptr(), m5, m_pad5,
+                n5, 5, 0, stream))
+            if call() != 0:
+                raise SystemExit(f"{src} {name}: launch failed")
+            ms = chip_smoke.time_ms(call, 20)
+            differ = (kt_out != kt_plain).sum().item() / kt_out.numel()
+            top = (kt_out.int() - kt_plain.int()).abs().max().item()
+            print(f"{src} {name}: {ms:.4f} ms ({m_pad5 * n5 / ms / 1e6:.1f} "
+                  f"GB/s written; codes differing from plain {differ:.4g}, "
+                  f"at most by {top})", flush=True)
+            continue
+        if src == "crf_iteration":
+            fn = lib.crf_fused_iteration
+            fn.argtypes = [P] * 6 + [I] * 5 + [P]
+            call = (lambda fn=fn: fn(
+                *(t.data_ptr() for t in k6_args), k6_out.data_ptr(), k6_r,
+                m_pad5, n5, k6_v, k6_c, stream))
+            if call() != 0:
+                raise SystemExit(f"{src} {name}: launch failed")
+            ms = chip_smoke.time_ms(call, 20)
+            err = (k6_out.float() - k6_plain.float()).abs().max().item()
+            nbytes = (m_pad5 * n5 + k6_r * m_pad5 * 2 + 3 * k6_r * n5 * 2
+                      + n5 * 4)
+            print(f"{src} {name}: {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s "
+                  f"over the bound's bytes; max |out - plain| {err:.3g})",
+                  flush=True)
+            if name == "full":  # the same call on the first R state rows
+                for r in (16, 32, 48):
+                    q, kt_, u_, msp_, nb_ = k6_args
+                    rargs = [q[:r].contiguous(), kt_, u_[:r].contiguous(),
+                             msp_[:r].contiguous(), nb_]
+                    rout = k6_out[:r].contiguous()
+                    ms = chip_smoke.time_ms(
+                        lambda fn=fn, rargs=rargs, rout=rout, r=r: fn(
+                            *(t.data_ptr() for t in rargs), rout.data_ptr(),
+                            r, m_pad5, n5, 1, r, stream), 20)
+                    print(f"{src} {name} R={r} (v=1, c={r}): {ms:.4f} ms",
+                          flush=True)
+            continue
         if src == "crf_matmul":
             fn = lib.gaussian_kernel_matmul
             fn.argtypes = [P] * 4 + [I] * 5 + [P]
