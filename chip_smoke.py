@@ -15,7 +15,8 @@ Phases, each of which exits non-zero on failure:
    ``F.scaled_dot_product_attention``), and for the fused ViT kernels
    the port's unfused route (LayerNorm, cuBLAS products, ``F.gelu``,
    K2), which the fused path never calls; K8 at the exact CRF's shape
-   and at both Nystrom shapes; K7 at both sequence-parallel chunk shapes
+   and at both Nystrom shapes, with its launch plan and two launches
+   bit-equal; K7 at both sequence-parallel chunk shapes
    (sp = 2 at 336 and 768 px), bit-equal to K2's rows over the whole
    sequence; K9 on [B, H, S, D] views at four shapes;
 4. reference: each branch of the CRF alone on the card against the CPU
@@ -61,6 +62,9 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12  # dense tensor-core bf16
 F32_FLOPS = 67e12  # CUDA-core f32
+# ex2 on the multi-function units: 16 a clock per SM against the f32
+# units' 128 FMAs (256 flops), at the clock F32_FLOPS implies.
+EX2_PER_S = F32_FLOPS / 16
 PIPELINE_BATCHES = 3  # timed, double-buffered, after one warm-up batch
 BUCKET = 192  # the CRF bucket of the reference default (bench.py)
 LEG_768 = (768, 12)  # bench.py's second leg: image size, batch
@@ -351,6 +355,51 @@ def photo_like_rgb(h: int, w: int, gen):
     return (img + 12 * noise).clamp(0, 255)
 
 
+def k8_support(cfg, gen):
+    """K8's features at the exact and Nystrom CRFs' shapes: the pixels of
+    the 192 bucket of a photo-like scene, scaled as the runner scales
+    them for a 500x375 GT, and the s = 4 anchors."""
+    import torch
+
+    from pnp_ovss_tpu_torch.ops.crf import bilateral_features
+
+    hb, sub = BUCKET, 4
+    crf_cfg = cfg.postprocess.crf
+    gt_h, gt_w = GT_SIZES[0]
+    scale = torch.tensor([hb / gt_w, hb / gt_h], device=gen.device)
+    feats = bilateral_features(photo_like_rgb(hb, hb, gen),
+                               crf_cfg.bi_xy_std * scale, crf_cfg.bi_rgb_std)
+    return {"pixels": feats,
+            "anchors": feats.reshape(hb, hb, 5)[::sub, ::sub]
+            .reshape(-1, 5).contiguous()}
+
+
+def k8_values(m: int, c: int, signed: bool, gen):
+    """K8's values as the CRF passes them: ones for the degree (C = 1),
+    two variants' probabilities for a message, or signed values (the
+    Nystrom projection's output)."""
+    import torch
+
+    if c == 1:
+        return torch.ones((m, 1), device=gen.device)
+    if signed:
+        return torch.randn((m, c), generator=gen, device=gen.device)
+    return torch.softmax(torch.randn((m, 2, c // 2), generator=gen,
+                                     device=gen.device), -1).reshape(m, c)
+
+
+def k8_bound_ms(n: int, m: int, c: int):
+    """K8's bound: the bytes of features, values and output against the
+    operations of each unit: 15 f32 operations a pair (the explicit
+    differences' 5 subtractions and 5 FMAs; the negation folds into the
+    ex2's operand and the features are scaled once per call), one ex2 a
+    pair and the bf16 product. Returns (ms, by, bytes)."""
+    nbytes = (n + m) * 5 * 4 + m * c * 4 + n * c * 4
+    ms, by = bound_ms(nbytes, 15.0 * n * m, F32_FLOPS,
+                      (2.0 * n * m * c, BF16_FLOPS), (1.0 * n * m, EX2_PER_S))
+    return ms, by, nbytes
+
+
 def kernel_matmul_check(cfg):
     """Phase 3 for K8 at the shapes of the exact CRF (N = M = 36864
     pixels of the 192 bucket: the message with C = 58 channels of two
@@ -358,51 +407,51 @@ def kernel_matmul_check(cfg):
     (2304 anchors against the pixels and back, with signed values), the
     features scaled as the runner scales them for a 500x375 GT. K8 rows
     are independent, so the plain version runs on the first
-    ``K8_CHECK_ROWS`` i-rows against all j. Returns the row of the kernels
-    line, at the exact CRF's message shape."""
+    ``K8_CHECK_ROWS`` i-rows against all j; a second launch must equal
+    the first bit for bit. Prints each shape's launch plan (channel
+    width, j split, work units an SM), read from the buffers of the
+    launch that ran. ``ms`` times the one-shot entry
+    ``gaussian_kernel_matmul``, which packs the features on every call,
+    ``closure_ms`` the wrapper as the CRF calls it (``kernel_matmul_fn``,
+    features packed once per image). Returns the row of the kernels line,
+    at the exact CRF's message shape."""
     import torch
 
     from pnp_ovss_tpu_torch.ops import bilateral
-    from pnp_ovss_tpu_torch.ops.crf import bilateral_features
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
-    hb, sub = BUCKET, 4
-    crf_cfg = cfg.postprocess.crf
-    gt_h, gt_w = GT_SIZES[0]
-    scale = torch.tensor([hb / gt_w, hb / gt_h], device=dev)
-    feats = bilateral_features(photo_like_rgb(hb, hb, gen),
-                               crf_cfg.bi_xy_std * scale, crf_cfg.bi_rgb_std)
-    support = {"pixels": feats,
-               "anchors": feats.reshape(hb, hb, 5)[::sub, ::sub]
-               .reshape(-1, 5).contiguous()}
+    support = k8_support(cfg, gen)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     lines = []
     for label, side_i, side_j, c, signed, tol in K8_SHAPES:
         fi, fj = support[side_i], support[side_j]
-        m = fj.shape[0]
-        if c == 1:
-            vals = torch.ones((m, 1), device=dev)
-        elif signed:
-            vals = torch.randn((m, c), generator=gen, device=dev)
-        else:  # two variants' probabilities, as the state is
-            vals = torch.softmax(torch.randn((m, 2, c // 2), generator=gen,
-                                             device=dev), -1).reshape(m, c)
+        n, m = fi.shape[0], fj.shape[0]
+        vals = k8_values(m, c, signed, gen)
         fj_arg = None if side_i == side_j else fj
-        out = bilateral.gaussian_kernel_matmul(fi, vals, fj_arg)
-        rows = min(K8_CHECK_ROWS, fi.shape[0])
+        # As the CRF calls it: the features packed once per image.
+        fn = bilateral.kernel_matmul_fn(fi, fj_arg)
+        out = fn(vals)
+        plan = fn.bufs[c]
+        units = plan.counters.numel() * plan.split  # tiles x chunks x split
+        print(f"  gaussian_kernel_matmul {label}: width {plan.width} x "
+              f"{-(-c // plan.width)} chunk(s), j split {plan.split}: "
+              f"{units} units, {units / sms:.3f} an SM of {sms}", flush=True)
+        if not (torch.equal(out, fn(vals)) and torch.equal(
+                out, bilateral.gaussian_kernel_matmul(fi, vals, fj_arg))):
+            raise SystemExit(f"FAIL: gaussian_kernel_matmul {label}: two "
+                             "launches differ")
+        rows = min(K8_CHECK_ROWS, n)
         ref = bilateral.kernel_matmul_plain(fi[:rows], vals, fj)
         top = ref.abs().max().item()
         rel = (out[:rows] - ref).abs().max().item() / top
-        print(f"  gaussian_kernel_matmul {label} N={fi.shape[0]} M={m}: "
+        print(f"  gaussian_kernel_matmul {label} N={n} M={m}: "
               f"first {rows} rows, |ref| max {top:.4g}", flush=True)
         check(f"gaussian_kernel_matmul {label} max|K8-plain|/max|plain|",
               rel, tol)
         del out, ref
         torch.cuda.synchronize()
-        n = fi.shape[0]
-        nbytes = (n + m) * 5 * 4 + m * c * 4 + n * c * 4
-        bms, by = bound_ms(nbytes, 17.0 * n * m, F32_FLOPS,
-                           (2.0 * n * m * c, BF16_FLOPS))
+        bms, by, nbytes = k8_bound_ms(n, m, c)
         lines.append(with_rate(dict(
             name="gaussian_kernel_matmul", route="cuda",
             source="pnp_ovss_tpu_torch/csrc/crf_matmul.cu",
@@ -410,18 +459,20 @@ def kernel_matmul_check(cfg):
             max_abs_err=rel * top, rel_err=rel, tolerance_rel=tol,
             ms=time_ms(lambda: bilateral.gaussian_kernel_matmul(
                 fi, vals, fj_arg), 10),
+            closure_ms=time_ms(lambda: fn(vals), 10),
             plain_ms=time_ms(lambda: bilateral.kernel_matmul_plain(
                 fi, vals, fj), 1, warmup=1),
             bound_ms=bms, bound_by=by, library_ms=None,
             shape=f"{label} N={n} M={m}"), nbytes))
     for row in lines:
         print(f"  gaussian_kernel_matmul {row['shape']}: {row['ms']:.4f} ms "
-              f"(plain {row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} by "
+              f"(closure {row['closure_ms']:.4f}, plain "
+              f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} by "
               f"{row['bound_by']}, library None)", flush=True)
     row = dict(lines[0])
-    row["shapes"] = [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
-                                        "max_abs_err", "gb_per_s")}
-                     for r in lines]
+    row["shapes"] = [{k: r[k] for k in (
+        "shape", "ms", "closure_ms", "plain_ms", "bound_ms", "max_abs_err",
+        "gb_per_s")} for r in lines]
     return row
 
 
@@ -1299,7 +1350,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "arning")):
                 print(f"  {name}: {line.strip()}", flush=True)
 
     cfg, cfg768 = full_config(336), full_config(LEG_768[0])

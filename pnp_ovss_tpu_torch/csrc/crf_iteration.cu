@@ -117,46 +117,6 @@ __device__ __forceinline__ uint32_t dequant_pair(uint32_t lo, uint32_t hi,
   return pnp::pack_bf16x2(flo, fhi);
 }
 
-// Keeps the compiler from reusing an A fragment's registers before the
-// asynchronous wgmma that reads them is known to be done.
-template <int S>
-__device__ __forceinline__ void fence_a(uint32_t (&a)[S][2][4]) {
-#pragma unroll
-  for (int s = 0; s < S; ++s)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[s][i][j])::"memory");
-}
-
-// d (64 x 64, f32) += A (64 x 16, bf16 registers, mma.sync's per-warp
-// fragment layout) * B (16 x 64, bf16 K-major smem descriptor). Thread T
-// holds d[4j], d[4j + 1] at row 16 (T / 32) + (T % 32) / 4, columns
-// 8j + 2 (T % 4) + {0, 1}, and d[4j + 2], d[4j + 3] eight rows below.
-__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
-                                                   const uint32_t (&a)[4],
-                                                   uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
 // K^T and qsub through their tensor maps (boxes of 128 x 64 bytes and
 // 64 x 64 bf16, 128-byte swizzle).
 __global__ void __launch_bounds__(kThreads) crf_iter_kernel(
@@ -217,7 +177,7 @@ __global__ void __launch_bounds__(kThreads) crf_iter_kernel(
     // The last k-step's products are done: its A registers are free, and
     // after the barrier so is its slot, which this k-step refills.
     pnp::hopper::wgmma_wait<0>();
-    fence_a(a);
+    pnp::hopper::fence_a(a);
 #pragma unroll
     for (int i = 0; i < 2; ++i) pnp::hopper::fence_regs(acc[i]);
     __syncthreads();
@@ -247,11 +207,11 @@ __global__ void __launch_bounds__(kThreads) crf_iter_kernel(
     for (int s = 0; s < kBK / 16; ++s)
 #pragma unroll
       for (int i = 0; i < 2; ++i)
-        wgmma_m64n64k16_rs(acc[i], a[s][i], db + 2 * s);
+        pnp::hopper::wgmma_rs<64>(acc[i], a[s][i], db + 2 * s);
     pnp::hopper::wgmma_commit();
   }
   pnp::hopper::wgmma_wait<0>();
-  fence_a(a);
+  pnp::hopper::fence_a(a);
 #pragma unroll
   for (int i = 0; i < 2; ++i) pnp::hopper::fence_regs(acc[i]);
   __syncthreads();  // the ring is drained: its memory holds the epilogue's

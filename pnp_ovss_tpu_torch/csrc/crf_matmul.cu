@@ -6,209 +6,458 @@
 // the exact CRF (subsample 1), the unmaterialised strided CRF and both
 // products of the Nystrom reconstruction.
 //
-// Numerics, as the Pallas body: the exponent is f32; k and v are rounded
-// to bf16 for the product, which accumulates in f32. Rows i >= N are not
-// stored; columns j >= M contribute exactly 0 (the wrapper pads v^T with
-// zero columns and the features with finite zeros, so k * 0 = 0).
+// Numerics, as the Pallas body: the exponent is f32, from explicit
+// differences on the CUDA cores (ROADMAP F1), over features the wrapper
+// scales by sqrt(1 / (2 ln 2)) so that k = 2^-d^2 is one ex2.approx.ftz (an
+// entry below 2^-126 adds nothing a bf16 sum can hold); k and v are rounded
+// to bf16 for the product, which sums in f32. The expansion 2a.b - |a|^2 -
+// |b|^2 (6 f32 operations a pair in place of 10) was measured and dropped:
+// even over features centred at their midrange it leaves ~6e-5 in the
+// exponent of pairs with k near 1, 20x explicit differences' 3e-6, and the
+// bf16 codes it flips there moved the exact message 1.4e-3 from the plain
+// version against a bar of 7e-4 (PERF.md).
 //
 // Bound on the H100 SXM at the exact CRF's shape (N = M = 36864 pixels of
 // the 192x192 bucket, C = 58 channels of two variants): 1.36e9 pairs, each
-// ~17 f32 operations for the explicit-difference exponent (0.35 ms at
-// 67 TFLOP/s on the CUDA cores) and one ex2 on the multi-function unit
-// (16 a clock per SM), against 2*N*M*C = 158 GFLOP of bf16 product
-// (0.16 ms at 989 TFLOP/s) and ~15 MB of inputs and outputs. Bound by the
-// f32 exponent work, then by the ex2 rate.
+// one ex2 on the multi-function unit (16 a clock per SM: 0.325 ms at 132
+// SMs and the 1.98 GHz that 67 TFLOP/s implies) and 15 f32 operations (5
+// subtractions and 5 FMAs; the negation folds into the ex2's operand: 0.30
+// ms at 67 TFLOP/s), against 2*N*M*C = 158 GFLOP of bf16 product (0.16 ms
+// at 989 TFLOP/s) and ~15 MB of inputs and outputs. The ex2 unit bounds
+// it; in issue slots a pair takes about 12 (10 f32, 1 ex2, half a bf16
+// pack, half a shared load) of the 128 an SM issues a clock, 0.49 ms.
 //
-// Design: one block of 6 warps owns 96 i-rows (one warp per 16 rows, 384
-// blocks at N = 36864: one wave at up to 4 blocks an SM) and walks all of
-// j in 64-column stages. Nothing carries between blocks: no atomics, no
-// split over j. A stage puts the f_j tile (f32, 8 floats a column) and
-// the v^T tile (bf16, channels padded to 16) in shared memory with
-// cp.async, double buffered. Each thread computes the kernel entries of
-// exactly its own mma.sync m16n8k16 A fragment (rows g, g+8; columns 2t,
-// 2t+1, 2t+8, 2t+9 of each 16-column step): its rows' features sit in
-// registers, a column's features come from shared memory in two vector
-// loads, d^2 is a sum of explicit f32 differences on the CUDA cores, and
-// the results are packed to bf16x2 in registers, so k never touches
-// shared memory. The wrapper scales the features by sqrt(1 / (2 ln 2)),
-// so that k = 2^-d^2 is one ex2 with flush to zero (an entry below 2^-126
-// adds nothing a bf16 sum can hold). The feature product feeds an
-// exponent, so it never goes through the tensor cores (bf16 or TF32 would
-// put an error of order 1 into the exponent at ||f||^2 ~ 8e3). The f32
-// accumulators of the [16, channels] output tile stay in registers across
-// the whole j loop and are stored once. More than 128 channels split over
-// blockIdx.y, each chunk recomputing the exponents.
+// Design: out = K v on wgmma (hopper.cuh's wgmma_rs, shared with K6), with
+// K computed in registers as A.
+// - One warpgroup a block owns two m64 row tiles (128 i rows). Each
+//   thread computes exactly its own A fragments of wgmma m64nWk16 (the
+//   per-warp layout of mma.sync m16n8k16: rows g, g+8 of its warp's 16 in
+//   each tile, columns 2t, 2t+1, 2t+8, 2t+9 of each 16-column step), so a
+//   column's features, read from shared memory once, serve 4 entries, and
+//   k never touches shared memory. The rows' features live in registers.
+// - B is the v^T tile, W channels x 64 columns of bf16 in 128-byte
+//   swizzled shared memory (K-major as stored). W is C rounded up to one of
+//   8, 16, 32, 48, 64, 96, 128 (C = 1, the degree, runs n = 8); more than
+//   128 channels split into equal chunks over blockIdx.y, each chunk
+//   recomputing the exponents.
+// - A ring of kStages stages fed by TMA (one thread arms a stage's
+//   mbarrier and issues two 2-D box loads: the v^T tile and the 64
+//   columns' scaled features, 12 floats a column, so that the four
+//   columns a warp reads at once fall in distinct banks). TMA zero-fills
+//   past M and C: a pad column has finite features and v = 0, so it adds
+//   exactly 0. The stage wait traps after ~2 s instead of hanging.
+// - A stage computes all 32 of its fragments (4 k16 steps, 2 tiles), then
+//   issues its 8 products back to back; they run while the next stage
+//   waits for its data, and are waited for only before that stage
+//   rewrites the fragments. (Writing A registers while an earlier wgmma
+//   still reads them makes ptxas serialise every wgmma: C7513.)
+// - Work units are (row tile, j chunk): the wrapper splits j into
+//   `split` chunks so that every SM gets close to the same number of
+//   units (bilateral.matmul_plan). With split > 1 each unit writes its f32
+//   partial to a workspace; the last unit of a row tile to arrive (a
+//   counter, reset by that unit) sums the partials in the fixed order of
+//   the chunks and stores the result, so two launches on the same inputs
+//   are bit-equal. No float atomics.
 
-#include "gemm_tile.cuh"
+#include <atomic>
+
+#include "wgmma_gemm.cuh"
 
 namespace {
 
-constexpr int kWarps = 6;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = kWarps * 16;  // i rows per block
-constexpr int kBJ = 64;             // j columns per stage
-constexpr int kVLd = kBJ + 8;       // bf16 row stride of the staged v^T tile
-constexpr int kFLd = 8;             // floats a feature row holds
+constexpr int kTiles = 2;                // m64 row tiles a warpgroup
+constexpr int kThreads = 128;            // one warpgroup a block
+constexpr int kRows = 64 * kTiles;       // i rows a block
+constexpr int kBJ = 64;                  // j columns a stage: one swizzle row
+constexpr int kFLd = 12;                 // floats a packed feature row
+constexpr int kStages = 4;               // ring depth
+constexpr int kFTile = kBJ * kFLd * 4;   // bytes of a stage's features
+constexpr long long kWaitCycles = 1ll << 32;  // ~2 s before a stage traps
 
-// 2^-x, flushing results below 2^-126 to 0.
-__device__ __forceinline__ float exp2_neg(float x) {
+// Bytes of a stage (the v^T tile first: a 1024-byte multiple) and of a
+// block's dynamic shared memory (the ring, its barriers, a flag, and room
+// to align the ring to 1024 bytes).
+template <int W>
+constexpr int kStageBytes = W * kBJ * 2 + kFTile;
+template <int W>
+constexpr int kSmemBytes =
+    kStages * kStageBytes<W> + kStages * 8 + 16 + 1024;
+
+// Waits for the phase of parity `parity` of a stage's barrier; traps (a
+// launch error, not a hang) if the bytes it expects never arrive.
+__device__ __forceinline__ void wait_stage(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = pnp::smem_addr(bar);
+  const long long t0 = clock64();
+  uint32_t done = 0;
+  for (uint32_t spin = 1; !done; ++spin) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (!done && spin % 1024 == 0 && clock64() - t0 > kWaitCycles) __trap();
+  }
+}
+
+// 2^x, flushing results below 2^-126 to 0.
+__device__ __forceinline__ float exp2_ftz(float x) {
   float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(-x));
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
 
-// F: feature width used (5, or 8 for 6..8; rows hold kFLd floats, zero
-// beyond F); NB: 16-channel blocks per chunk.
-template <int F, int NB>
-__global__ void __launch_bounds__(kThreads) kernel_matmul(
-    const float* __restrict__ fi, const float* __restrict__ fj,
-    const __nv_bfloat16* __restrict__ vt, float* __restrict__ out, int N,
-    int M_pad, int C) {
-  constexpr int kCh = NB * 16;
-  __shared__ __align__(16) float fs[2][kBJ * kFLd];
-  __shared__ __align__(16) __nv_bfloat16 vs[2][kCh * kVLd];
+// The first K floats of a column's packed features, in 16-byte loads
+// where they fit (K = 5: two loads, K = 8: two).
+template <int K>
+__device__ __forceinline__ void load_column(const float* p, float (&b)[K]) {
+#pragma unroll
+  for (int q = 0; q + 4 <= K; q += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p + q);
+    b[q] = v.x;
+    b[q + 1] = v.y;
+    b[q + 2] = v.z;
+    b[q + 3] = v.w;
+  }
+  constexpr int kTail = K / 4 * 4;
+  if constexpr (K % 4 >= 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p + kTail);
+    b[kTail] = v.x;
+    b[kTail + 1] = v.y;
+  }
+  if constexpr (K % 2 == 1) b[K - 1] = p[K - 1];
+}
 
+// One block: row tile blockIdx.x / split, j chunk blockIdx.x % split,
+// channels blockIdx.y * W ..; features (f_j side) and v^T through their
+// tensor maps (boxes of 64 x 12 f32 and 64 x W bf16, the latter with
+// 128-byte swizzle).
+template <int F, int W>
+__global__ void __launch_bounds__(kThreads, (F == 5 && W <= 64) ? 3 : 2)
+    matmul_kernel(const __grid_constant__ CUtensorMap tm_f,
+                  const __grid_constant__ CUtensorMap tm_v,
+                  const float* __restrict__ fi, float* __restrict__ out,
+                  float* __restrict__ ws, int* __restrict__ counters, int N,
+                  int M, int C, int split) {
+  constexpr int kStage = kStageBytes<W>;
+  constexpr int kPairs = kTiles * W / 4;  // float2 of a thread's partial
+  extern __shared__ unsigned char smem_raw[];
+  // Stages on a 1024-byte boundary (the swizzle's period). An offset into
+  // smem_raw, so that the compiler still sees a shared-memory pointer and
+  // reads the features with LDS rather than generic loads.
+  unsigned char* smem =
+      smem_raw + ((1024 - (pnp::smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStage);
+  int* last = reinterpret_cast<int*>(full + kStages);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  const long long r0 = static_cast<long long>(blockIdx.x) * kRows + warp * 16;
-  const int c0 = blockIdx.y * kCh;
+  const int rt = blockIdx.x / split, q = blockIdx.x % split;
+  const int r0 = rt * kRows, c0 = blockIdx.y * W;
+  const int stages = (M + kBJ - 1) / kBJ;
+  const int s0 = static_cast<int>(static_cast<long long>(q) * stages / split);
+  const int n_it =
+      static_cast<int>(static_cast<long long>(q + 1) * stages / split) - s0;
 
-  float fr[2][F];
+  auto v_tile = [&](int slot) { return smem + slot * kStage; };
+  auto f_tile = [&](int slot) {
+    return reinterpret_cast<const float*>(smem + slot * kStage + W * kBJ * 2);
+  };
+  // Thread 0: stage `it` of this chunk into its slot.
+  auto load = [&](int it) {
+    const int slot = it % kStages, j0 = (s0 + it) * kBJ;
+    pnp::hopper::mbar_expect_tx(&full[slot], kStage);
+    pnp::hopper::tma_load_2d(v_tile(slot), &tm_v, j0, c0, &full[slot]);
+    pnp::hopper::tma_load_2d(smem + slot * kStage + W * kBJ * 2, &tm_f, 0,
+                             j0, &full[slot]);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) pnp::hopper::mbar_init(&full[s], 1);
+    pnp::hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int s = 0; s < kStages - 1 && s < n_it; ++s) load(s);
+
+  // Row features: entry r = 2 i + h is row 64 i + 16 warp + g + 8 h of
+  // the tile, 0 past N.
+  float ra[2 * kTiles][F];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const long long i = r0 + g + 8 * h;
+  for (int r = 0; r < 2 * kTiles; ++r) {
+    const int row = r0 + 64 * (r / 2) + 16 * warp + g + 8 * (r % 2);
+    const float* p = fi + static_cast<long long>(row) * kFLd;
 #pragma unroll
-    for (int d = 0; d < F; ++d) fr[h][d] = i < N ? fi[i * kFLd + d] : 0.f;
+    for (int d = 0; d < F; ++d) ra[r][d] = row < N ? p[d] : 0.f;
   }
 
-  auto stage = [&](int buf, int j0) {
-    const float* src = fj + static_cast<long long>(j0) * kFLd;
-    for (int q = tid; q < kBJ * kFLd / 4; q += kThreads)
-      pnp::cp_async16(&fs[buf][q * 4], src + q * 4);
-    for (int q = tid; q < kCh * (kBJ / 8); q += kThreads) {
-      const int r = q / (kBJ / 8), col = (q % (kBJ / 8)) * 8;
-      pnp::cp_async16(&vs[buf][r * kVLd + col],
-                      vt + static_cast<long long>(c0 + r) * M_pad + j0 + col);
-    }
-  };
-
-  float acc[2 * NB][4];
+  float acc[kTiles][W / 2];
 #pragma unroll
-  for (int n = 0; n < 2 * NB; ++n)
+  for (int i = 0; i < kTiles; ++i)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  const int nj = M_pad / kBJ;
-  if (nj > 0) stage(0, 0);
-  pnp::cp_async_commit();
-  for (int jt = 0; jt < nj; ++jt) {
-    const int buf = jt & 1;
-    if (jt + 1 < nj) {
-      stage(buf ^ 1, (jt + 1) * kBJ);
-      pnp::cp_async_commit();
-      pnp::cp_async_wait<1>();
-    } else {
-      pnp::cp_async_wait<0>();
-    }
+    for (int e = 0; e < W / 2; ++e) acc[i][e] = 0.f;
+  uint32_t a[kBJ / 16][kTiles][4] = {};  // [k16 step][tile][fragment]
+  for (int it = 0; it < n_it; ++it) {
+    // The last stage's products are done: its A registers are free, and
+    // after the barrier so is its slot, which this stage refills.
+    pnp::hopper::wgmma_wait<0>();
+    pnp::hopper::fence_a(a);
+#pragma unroll
+    for (int i = 0; i < kTiles; ++i) pnp::hopper::fence_regs(acc[i]);
     __syncthreads();
-    const float* f = fs[buf];
-    const __nv_bfloat16* v = vs[buf];
+    if (tid == 0 && it + kStages - 1 < n_it) load(it + kStages - 1);
+    wait_stage(&full[it % kStages], (it / kStages) & 1);
+
+    const float* fs = f_tile(it % kStages);
 #pragma unroll
     for (int s = 0; s < kBJ / 16; ++s) {
-      // k[h][q]: row g + 8h, column s*16 + 2t + (q & 1) + 8 (q >> 1).
-      float k[2][4];
+      // k[r][c]: row entry r, column s*16 + 2t + (c & 1) + 8 (c >> 1).
+      float k[2 * kTiles][4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float* fc =
-            f + (s * 16 + 2 * t + (q & 1) + (q >> 1) * 8) * kFLd;
-        const float4 lo = *reinterpret_cast<const float4*>(fc);
-        const float4 hi = *reinterpret_cast<const float4*>(fc + 4);
-        const float b[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+      for (int c = 0; c < 4; ++c) {
+        float b[F];
+        load_column(fs + (s * 16 + 2 * t + (c & 1) + 8 * (c >> 1)) * kFLd, b);
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
+        for (int r = 0; r < 2 * kTiles; ++r) {
           float d2 = 0.f;
 #pragma unroll
           for (int d = 0; d < F; ++d) {
-            const float diff = fr[h][d] - b[d];
-            d2 = fmaf(diff, diff, d2);
+            const float e = ra[r][d] - b[d];
+            d2 = fmaf(e, e, d2);
           }
-          k[h][q] = exp2_neg(d2);
+          k[r][c] = exp2_ftz(-d2);
         }
       }
-      const uint32_t a[4] = {
-          pnp::pack_bf16x2(k[0][0], k[0][1]), pnp::pack_bf16x2(k[1][0], k[1][1]),
-          pnp::pack_bf16x2(k[0][2], k[0][3]), pnp::pack_bf16x2(k[1][2], k[1][3])};
 #pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
-        uint32_t b[4];
-        pnp::ldm_b2(b, v + nb * 16 * kVLd + s * 16, kVLd, lane);
-        pnp::mma_bf16_16816(acc[2 * nb], a, b[0], b[1]);
-        pnp::mma_bf16_16816(acc[2 * nb + 1], a, b[2], b[3]);
+      for (int i = 0; i < kTiles; ++i) {
+        a[s][i][0] = pnp::pack_bf16x2(k[2 * i][0], k[2 * i][1]);
+        a[s][i][1] = pnp::pack_bf16x2(k[2 * i + 1][0], k[2 * i + 1][1]);
+        a[s][i][2] = pnp::pack_bf16x2(k[2 * i][2], k[2 * i][3]);
+        a[s][i][3] = pnp::pack_bf16x2(k[2 * i + 1][2], k[2 * i + 1][3]);
       }
     }
+    const uint64_t db = pnp::hopper::desc_sw128(v_tile(it % kStages));
+    pnp::hopper::wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < kBJ / 16; ++s)
+#pragma unroll
+      for (int i = 0; i < kTiles; ++i)
+        pnp::hopper::wgmma_rs<W>(acc[i], a[s][i], db + 2 * s);
+    pnp::hopper::wgmma_commit();
+  }
+  pnp::hopper::wgmma_wait<0>();
+  pnp::hopper::fence_a(a);
+#pragma unroll
+  for (int i = 0; i < kTiles; ++i) pnp::hopper::fence_regs(acc[i]);
+
+  if (split > 1) {
+    // This unit's partial, float2 p of thread tid at [p][tid] (coalesced);
+    // the units of one row tile and chunk are adjacent.
+    const long long unit = static_cast<long long>(blockIdx.y) * gridDim.x +
+                           blockIdx.x;
+    float2* part = reinterpret_cast<float2*>(ws);
+#pragma unroll
+    for (int i = 0; i < kTiles; ++i)
+#pragma unroll
+      for (int p = 0; p < W / 4; ++p)
+        part[(unit * kPairs + i * (W / 4) + p) * kThreads + tid] =
+            make_float2(acc[i][2 * p], acc[i][2 * p + 1]);
+    __threadfence();
     __syncthreads();
+    if (tid == 0) {
+      int* cnt = counters + blockIdx.y * (gridDim.x / split) + rt;
+      const int prev = atomicAdd(cnt, 1);
+      *last = prev == split - 1;
+      if (prev == split - 1) *cnt = 0;  // ready for the next launch
+    }
+    __syncthreads();
+    if (!*last) return;
+    __threadfence();
+    // The last unit sums the partials in chunk order, its own from
+    // registers (the same bits it stored); each chunk's loads are issued
+    // together. 0 + p_0 = p_0, so the sum is ((p_0 + p_1) + p_2) + ...
+    const float2* first = part + (unit - q) * kPairs * kThreads;
+    float sum[kTiles][W / 2];
+#pragma unroll
+    for (int i = 0; i < kTiles; ++i)
+#pragma unroll
+      for (int e = 0; e < W / 2; ++e) sum[i][e] = 0.f;
+    for (int u = 0; u < split; ++u) {
+      const float2* pu = first + static_cast<long long>(u) * kPairs * kThreads;
+#pragma unroll
+      for (int i = 0; i < kTiles; ++i)
+#pragma unroll
+        for (int p = 0; p < W / 4; ++p) {
+          const float2 v =
+              u == q ? make_float2(acc[i][2 * p], acc[i][2 * p + 1])
+                     : __ldcg(pu + (i * (W / 4) + p) * kThreads + tid);
+          sum[i][2 * p] += v.x;
+          sum[i][2 * p + 1] += v.y;
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < kTiles; ++i)
+#pragma unroll
+      for (int e = 0; e < W / 2; ++e) acc[i][e] = sum[i][e];
   }
 
 #pragma unroll
-  for (int n = 0; n < 2 * NB; ++n) {
-    const int col = c0 + n * 8 + 2 * t;
+  for (int i = 0; i < kTiles; ++i)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long long i = r0 + g + 8 * h;
-      if (i >= N) continue;
-      if (col < C) out[i * C + col] = acc[n][2 * h];
-      if (col + 1 < C) out[i * C + col + 1] = acc[n][2 * h + 1];
-    }
+    for (int j = 0; j < W / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long row = r0 + 64 * i + 16 * warp + g + 8 * h;
+        const int col = c0 + 8 * j + 2 * t;
+        if (row >= N) continue;
+        if (col < C) out[row * C + col] = acc[i][4 * j + 2 * h];
+        if (col + 1 < C) out[row * C + col + 1] = acc[i][4 * j + 2 * h + 1];
+      }
+}
+
+// A launch whose one stage never fills: it traps through wait_stage. Lets
+// a test see that a stalled ring ends the launch with an error.
+__global__ void stall_kernel() {
+  __shared__ uint64_t bar;
+  if (threadIdx.x == 0) {
+    pnp::hopper::mbar_init(&bar, 1);
+    pnp::hopper::mbar_fence_init();
   }
+  __syncthreads();
+  if (threadIdx.x == 0) pnp::hopper::mbar_expect_tx(&bar, 16);
+  __syncthreads();
+  wait_stage(&bar, 0);
+}
+
+// Tensor map of a row-major [rows, cols] array (element `type` of `elem`
+// bytes, rows `ld` elements apart) read in boxes of box_cols x box_rows;
+// out-of-range reads are 0.
+int make_map_2d(CUtensorMap* map, CUtensorMapDataType type, int elem,
+                const void* ptr, int rows, int cols, long long ld,
+                int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
+  pnp::gemm::EncodeTiled fn = pnp::gemm::encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * elem};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult r = fn(map, type, 2, const_cast<void*>(ptr), dims, strides,
+                        box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// matmul_kernel<F, W>'s shared-memory limit raised once per library and
+// device.
+template <int F, int W>
+int prepare() {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<bool> ready[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const bool cached = dev >= 0 && dev < kMaxDevices;
+  if (cached && ready[dev].load(std::memory_order_acquire)) return 0;
+  e = cudaFuncSetAttribute(matmul_kernel<F, W>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kSmemBytes<W>);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (cached) ready[dev].store(true, std::memory_order_release);
+  return 0;
+}
+
+struct Args {
+  CUtensorMap tm_f, tm_v;
+  const float* fi;
+  float* out;
+  float* ws;
+  int* counters;
+  int N, M, C, split, chunks;
+  cudaStream_t stream;
+};
+
+template <int F, int W>
+int launch(const Args& x) {
+  const int err = prepare<F, W>();
+  if (err != 0) return err;
+  const dim3 grid(((x.N + kRows - 1) / kRows) * x.split, x.chunks);
+  constexpr int smem = kSmemBytes<W>;
+  matmul_kernel<F, W><<<grid, kThreads, smem, x.stream>>>(
+      x.tm_f, x.tm_v, x.fi, x.out, x.ws, x.counters, x.N, x.M, x.C, x.split);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int F>
-cudaError_t launch(const float* fi, const float* fj, const __nv_bfloat16* vt,
-                   float* out, int N, int M_pad, int C, int NB,
-                   cudaStream_t stream) {
-  const dim3 grid((N + kRows - 1) / kRows, (C + NB * 16 - 1) / (NB * 16));
-#define PNP_K8_CASE(nb)                                                     \
-  case nb:                                                                  \
-    kernel_matmul<F, nb><<<grid, kThreads, 0, stream>>>(fi, fj, vt, out, N, \
-                                                         M_pad, C);         \
-    break;
-  switch (NB) {
-    PNP_K8_CASE(1)
-    PNP_K8_CASE(2)
-    PNP_K8_CASE(4)
-    PNP_K8_CASE(6)
-    PNP_K8_CASE(8)
-    default:
-      return cudaErrorInvalidValue;
+int launch_width(int width, const Args& x) {
+  switch (width) {
+    case 8: return launch<F, 8>(x);
+    case 16: return launch<F, 16>(x);
+    case 32: return launch<F, 32>(x);
+    case 48: return launch<F, 48>(x);
+    case 64: return launch<F, 64>(x);
+    case 96: return launch<F, 96>(x);
+    case 128: return launch<F, 128>(x);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef PNP_K8_CASE
-  return cudaGetLastError();
 }
 
 }  // namespace
 
-// fi [N, 8] f32 and fj [M_pad, 8] f32, features scaled by sqrt(1/(2 ln 2))
-// and zero beyond column F; vt [ceil(C / (16 NB)) * 16 NB, M_pad] bf16
-// (v^T, zero beyond C rows and M columns); out [N, C] f32; all contiguous
-// and 16-byte aligned. F in {5, 8}, M_pad % 64 == 0, NB in {1, 2, 4, 6, 8}.
+// fi [N, 12] and fj [M, 12] f32, the features scaled by
+// sqrt(1 / (2 ln 2)) in columns 0..F-1 (bilateral.pack_features); vt
+// [C, vt_ld] bf16 (v^T; columns from M on are not
+// read); out [N, C] f32; F in {5, 8}; width in {8, 16, 32, 48, 64, 96,
+// 128}, chunks = ceil(C / width) over blockIdx.y; 1 <= split <= ceil(M /
+// 64). With split > 1, ws holds at least chunks * ceil(N / 128) * split *
+// 128 * width floats and counters at least chunks * ceil(N / 128) ints,
+// all 0 before the first launch (each launch leaves them 0). fi, fj, vt
+// and ws 16-byte aligned, vt_ld % 8 == 0.
 extern "C" int gaussian_kernel_matmul(const void* fi, const void* fj,
-                                      const void* vt, void* out, int N,
-                                      int M_pad, int F, int C, int NB,
-                                      void* stream) {
-  if (N < 0 || M_pad < 0 || M_pad % kBJ != 0 || C < 1)
+                                      const void* vt, void* out, void* ws,
+                                      void* counters, int N, int M,
+                                      int vt_ld, int F, int C, int width,
+                                      int split, long long ws_floats,
+                                      int n_counters, void* stream) {
+  if (N < 0 || M < 1 || C < 1 || width < 8 || vt_ld < M || vt_ld % 8 != 0 ||
+      split < 1 || split > (M + kBJ - 1) / kBJ ||
+      !pnp::gemm::aligned16({fi, fj, vt, ws}))
     return static_cast<int>(cudaErrorInvalidValue);
   if (N == 0) return 0;
-  const auto* fi_ = static_cast<const float*>(fi);
-  const auto* fj_ = static_cast<const float*>(fj);
-  const auto* vt_ = static_cast<const __nv_bfloat16*>(vt);
-  auto* out_ = static_cast<float*>(out);
-  const auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (F == 5)
-    err = launch<5>(fi_, fj_, vt_, out_, N, M_pad, C, NB, st);
-  else if (F == 8)
-    err = launch<8>(fi_, fj_, vt_, out_, N, M_pad, C, NB, st);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  const int chunks = (C + width - 1) / width;
+  const long long tiles =
+      static_cast<long long>(chunks) * ((N + kRows - 1) / kRows);
+  if (split > 1 && (ws_floats < tiles * split * kRows * width ||
+                    n_counters < tiles))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args x;
+  x.fi = static_cast<const float*>(fi);
+  x.out = static_cast<float*>(out);
+  x.ws = static_cast<float*>(ws);
+  x.counters = static_cast<int*>(counters);
+  x.N = N;
+  x.M = M;
+  x.C = C;
+  x.split = split;
+  x.chunks = chunks;
+  x.stream = static_cast<cudaStream_t>(stream);
+  int err = make_map_2d(&x.tm_f, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, fj, M,
+                        kFLd, kFLd, kFLd, kBJ, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err == 0)
+    err = make_map_2d(&x.tm_v, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, vt, C,
+                      M, vt_ld, kBJ, width, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != 0) return err;
+  if (F == 5) return launch_width<5>(width, x);
+  if (F == 8) return launch_width<8>(width, x);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// One launch that stalls on a stage whose bytes never arrive; the launch
+// traps after ~2 s and the next synchronisation reports the error.
+extern "C" int gaussian_kernel_matmul_stall(void* stream) {
+  stall_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
 }

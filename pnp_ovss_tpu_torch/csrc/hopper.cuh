@@ -166,6 +166,92 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
       : "l"(da), "l"(db), "r"(1));
 }
 
+// Keeps the compiler from reusing A fragment registers ([S][T] fragments
+// of 4) before the asynchronous wgmma that reads them is known to be done.
+template <int S, int T>
+__device__ __forceinline__ void fence_a(uint32_t (&a)[S][T][4]) {
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int i = 0; i < T; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[s][i][j])::"memory");
+}
+
+// d (64 x W, f32) += A (64 x 16, bf16 registers, mma.sync's per-warp
+// fragment layout) * B (16 x W, bf16 K-major smem descriptor), for W in
+// {8, 16, 32, 48, 64, 96, 128}. Thread T holds d[4j], d[4j + 1] at row
+// 16 (T / 32) + (T % 32) / 4, columns 8j + 2 (T % 4) + {0, 1}, and
+// d[4j + 2], d[4j + 3] eight rows below.
+template <int W>
+__device__ __forceinline__ void wgmma_rs(float (&d)[W / 2],
+                                         const uint32_t (&a)[4], uint64_t db);
+
+// wgmma_rs<W>'s operands: PNP_RS_D_n lists d[0..n) as "+f" outputs,
+// PNP_RS_S_n names them "%0, ..., %(n-1)"; the four A registers, the
+// descriptor and the accumulate flag follow as %n..%(n+5).
+#define PNP_RS_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define PNP_RS_D8(i) PNP_RS_D4(i), PNP_RS_D4(i + 4)
+#define PNP_RS_D16(i) PNP_RS_D8(i), PNP_RS_D8(i + 8)
+#define PNP_RS_D_4 PNP_RS_D4(0)
+#define PNP_RS_D_8 PNP_RS_D8(0)
+#define PNP_RS_D_16 PNP_RS_D16(0)
+#define PNP_RS_D_24 PNP_RS_D_16, PNP_RS_D8(16)
+#define PNP_RS_D_32 PNP_RS_D_16, PNP_RS_D16(16)
+#define PNP_RS_D_48 PNP_RS_D_32, PNP_RS_D16(32)
+#define PNP_RS_D_64 PNP_RS_D_48, PNP_RS_D16(48)
+#define PNP_RS_S_4 "%0, %1, %2, %3"
+#define PNP_RS_S_8 PNP_RS_S_4 ", %4, %5, %6, %7"
+#define PNP_RS_S_16 PNP_RS_S_8 ", %8, %9, %10, %11, %12, %13, %14, %15"
+#define PNP_RS_S_24 PNP_RS_S_16 ", %16, %17, %18, %19, %20, %21, %22, %23"
+#define PNP_RS_S_32 PNP_RS_S_24 ", %24, %25, %26, %27, %28, %29, %30, %31"
+#define PNP_RS_S_48                                                      \
+  PNP_RS_S_32 ", %32, %33, %34, %35, %36, %37, %38, %39"                 \
+              ", %40, %41, %42, %43, %44, %45, %46, %47"
+#define PNP_RS_S_64                                                      \
+  PNP_RS_S_48 ", %48, %49, %50, %51, %52, %53, %54, %55"                 \
+              ", %56, %57, %58, %59, %60, %61, %62, %63"
+#define PNP_WGMMA_RS(W, N, A0, A1, A2, A3, DB, ONE)                      \
+  template <>                                                            \
+  __device__ __forceinline__ void wgmma_rs<W>(                           \
+      float(&d)[N], const uint32_t(&a)[4], uint64_t db) {                \
+    asm volatile(                                                        \
+        "{\n"                                                            \
+        ".reg .pred p;\n"                                                \
+        "setp.ne.b32 p, %" #ONE ", 0;\n"                                 \
+        "wgmma.mma_async.sync.aligned.m64n" #W "k16.f32.bf16.bf16 {"     \
+        PNP_RS_S_##N "}, {%" #A0 ", %" #A1 ", %" #A2 ", %" #A3 "}, %" #DB \
+        ", p, 1, 1, 0;\n"                                                \
+        "}\n"                                                            \
+        : PNP_RS_D_##N                                                   \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));  \
+  }
+PNP_WGMMA_RS(8, 4, 4, 5, 6, 7, 8, 9)
+PNP_WGMMA_RS(16, 8, 8, 9, 10, 11, 12, 13)
+PNP_WGMMA_RS(32, 16, 16, 17, 18, 19, 20, 21)
+PNP_WGMMA_RS(48, 24, 24, 25, 26, 27, 28, 29)
+PNP_WGMMA_RS(64, 32, 32, 33, 34, 35, 36, 37)
+PNP_WGMMA_RS(96, 48, 48, 49, 50, 51, 52, 53)
+PNP_WGMMA_RS(128, 64, 64, 65, 66, 67, 68, 69)
+#undef PNP_WGMMA_RS
+#undef PNP_RS_D4
+#undef PNP_RS_D8
+#undef PNP_RS_D16
+#undef PNP_RS_D_4
+#undef PNP_RS_S_4
+#undef PNP_RS_D_8
+#undef PNP_RS_S_8
+#undef PNP_RS_D_16
+#undef PNP_RS_S_16
+#undef PNP_RS_D_24
+#undef PNP_RS_S_24
+#undef PNP_RS_D_32
+#undef PNP_RS_S_32
+#undef PNP_RS_D_48
+#undef PNP_RS_S_48
+#undef PNP_RS_D_64
+#undef PNP_RS_S_64
+
 template <int R>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));

@@ -43,7 +43,8 @@ SOURCES: Dict[str, Dict[str, list]] = {
         "crf_fused_iteration": [_P, _P, _P, _P, _P, _P] + [_I] * 5 + [_P],
     },
     "crf_matmul": {
-        "gaussian_kernel_matmul": [_P] * 4 + [_I] * 5 + [_P],
+        "gaussian_kernel_matmul": [_P] * 6 + [_I] * 7 + [_L, _I, _P],
+        "gaussian_kernel_matmul_stall": [_P],
     },
     "ln_matmul": {
         "ln_matmul_bf16": [_P] * 7 + [_I] * 3 + [_F, _P],

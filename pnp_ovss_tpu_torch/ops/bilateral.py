@@ -15,7 +15,9 @@ it runs the plain PyTorch version beside it.
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -24,8 +26,12 @@ from pnp_ovss_tpu_torch.ops import _build
 KT_QUANT_SCALE = 255.0  # uint8 kernel storage: k in [0, 1] -> round(k*255)
 _OUT_KIND = {torch.uint8: 0, torch.float32: 1}
 _ROW_ALIGN = 128  # K^T rows pad to this multiple with exact zeros
-_MATMUL_BJ = 64  # K8's j stage: features_j and v^T columns pad to it
-_MATMUL_CH_BLOCKS = (1, 2, 4, 6, 8)  # K8's 16-channel blocks per chunk
+_MATMUL_ROWS = 128  # K8's row tile: two m64 tiles of one warpgroup
+_MATMUL_BJ = 64  # K8's j stage
+_MATMUL_FLD = 12  # floats a packed K8 feature row
+_MATMUL_WIDTHS = (8, 16, 32, 48, 64, 96, 128)  # K8's channels a chunk
+_MATMUL_MAX_SPLIT = 32  # j chunks at most
+_MATMUL_RESIDENT = 3  # K8 blocks an SM holds at W <= 64
 _LOG2_SCALE = (0.5 / math.log(2.0)) ** 0.5  # exp(-d2 / 2) = 2^-(s^2 d2)
 
 
@@ -47,42 +53,106 @@ def kernel_matmul_plain(features: torch.Tensor, values: torch.Tensor,
     return out
 
 
-def pack_features(features: torch.Tensor, rows: int) -> torch.Tensor:
-    """K8's feature operand: [rows, 8] f32, each row scaled so that
-    k = 2^-||f_i - f_j||^2 and zero beyond F and beyond the input's rows
-    (finite, so a pad column j adds k * 0 = 0 against v^T's zero
-    columns)."""
-    out = torch.zeros((rows, 8), dtype=torch.float32, device=features.device)
-    out[:features.shape[0], :features.shape[1]] = \
-        features.float() * _LOG2_SCALE
-    return out
+def pack_features(features: torch.Tensor) -> torch.Tensor:
+    """K8's feature operand [rows, 12] f32: each row scaled so that
+    k = 2^-||f_i - f_j||^2 in columns 0..F-1, zeros beyond (12 floats a
+    row keep the kernel's shared-memory reads free of bank conflicts)."""
+    return torch.nn.functional.pad(features.float() * _LOG2_SCALE,
+                                   (0, _MATMUL_FLD - features.shape[1]))
+
+
+def kernel_matmul_exponent(features: torch.Tensor, features_j=None
+                           ) -> torch.Tensor:
+    """log2 k [N, M] f32 as K8 computes it: explicit f32 differences of the
+    packed features, squared and summed by one FMA a feature in order,
+    negated (each FMA emulated by a float64 product and sum rounded to f32
+    once). For the F1 test."""
+    fi = pack_features(features)
+    fj = fi if features_j is None else pack_features(features_j)
+    d2 = torch.zeros((fi.shape[0], fj.shape[0]), dtype=torch.float32,
+                     device=fi.device)
+    for d in range(features.shape[1]):
+        e = fi[:, d, None] - fj[None, :, d]
+        d2 = (e.double() * e.double() + d2).float()
+    return -d2
+
+
+@functools.lru_cache(maxsize=None)
+def matmul_plan(n: int, m: int, c: int, sms: int):
+    """K8's launch shape for N rows, M columns and C channels on ``sms``
+    SMs -> (width, chunks, split): C in ``chunks`` equal chunks of at
+    most 128 channels, each ``width`` wide (wgmma's n), and j in ``split``
+    chunks. A work unit is one 128-row tile of one channel chunk over one
+    j chunk; ``split`` minimises the most units an SM runs, counted as at
+    least ``_MATMUL_RESIDENT`` (fewer leave its issue slots idle), times
+    the 64-column stages of a unit, plus, when split > 1, the cost of the
+    partial sums in stages: 2 a unit and 3/4 for each partial the last
+    unit adds (fitted to forced splits on the H100, PERF.md); the
+    smallest on a tie."""
+    chunks = -(-c // 128)
+    width = next(w for w in _MATMUL_WIDTHS if w * chunks >= c)
+    tiles = -(-n // _MATMUL_ROWS) * chunks
+    stages = max(1, -(-m // _MATMUL_BJ))
+
+    def cost(split):
+        per_sm = max(-(-tiles * split // sms), _MATMUL_RESIDENT)
+        partials = 2 + 0.75 * split if split > 1 else 0
+        return per_sm * (-(-stages // split) + partials)
+
+    split = min(range(1, min(stages, _MATMUL_MAX_SPLIT) + 1), key=cost)
+    return width, chunks, split
+
+
+class MatmulBufs(NamedTuple):
+    """K8's buffers and launch shape for one channel count and M: v^T
+    [C, M rounded up to 8] bf16, the workspace of f32 partials, one
+    counter a row tile and channel chunk (0 between launches), wgmma's n
+    and the j split."""
+    vt: torch.Tensor
+    ws: torch.Tensor
+    counters: torch.Tensor
+    width: int
+    split: int
+
+
+def matmul_bufs(n: int, m: int, c: int, device, width: int, split: int,
+                rows: int = _MATMUL_ROWS) -> MatmulBufs:
+    """K8's buffers for N rows, M columns and C channels at ``width`` and
+    ``split``, in row tiles of ``rows`` (the kernel's)."""
+    tiles = -(-n // rows) * -(-c // width)
+    ws_floats = tiles * rows * width * split if split > 1 else 0
+    return MatmulBufs(
+        torch.empty((c, -(-m // 8) * 8), dtype=torch.bfloat16, device=device),
+        torch.empty(ws_floats, dtype=torch.float32, device=device),
+        torch.zeros(tiles, dtype=torch.int32, device=device), width, split)
 
 
 def launch_matmul(fn, fi: torch.Tensor, fj: torch.Tensor, f: int,
-                  values: torch.Tensor, stream: int, vt=None):
-    """One call of K8's C entry ``fn`` on packed features (``fi`` [N, 8],
-    ``fj`` [M_pad, 8]) and ``values`` [M, C], copied into v^T in bf16
-    (channels padded to the 16-channel chunks and columns to M_pad with
-    zeros). ``vt`` may be a buffer of that shape from an earlier call with
-    the same C and M, whose pads are still zero. Returns (return code,
-    out [N, C] f32, vt)."""
-    n, m_pad = fi.shape[0], fj.shape[0]
-    m, c = values.shape
-    nb = next((b for b in _MATMUL_CH_BLOCKS if 16 * b >= c), 8)
-    if vt is None:
-        vt = torch.zeros((-(-c // (16 * nb)) * 16 * nb, m_pad),
-                         dtype=torch.bfloat16, device=fi.device)
-    vt[:c, :m] = values.t()
+                  values: torch.Tensor, stream: int, bufs=None):
+    """One call of K8's C entry ``fn`` on packed features (``fi`` [N, 12],
+    ``fj`` [M, 12]) and ``values`` [M, C], copied into v^T in bf16.
+    ``bufs``: a ``MatmulBufs`` for this C and M whose counters are 0 (each
+    launch leaves them so); without it, made at ``matmul_plan``'s shape.
+    Returns (return code, out [N, C] f32, bufs)."""
+    n, m = fi.shape[0], fj.shape[0]
+    c = values.shape[1]
+    if bufs is None:
+        sms = torch.cuda.get_device_properties(fi.device).multi_processor_count
+        width, _, split = matmul_plan(n, m, c, sms)
+        bufs = matmul_bufs(n, m, c, fi.device, width, split)
+    bufs.vt[:, :m] = values.t()
     out = torch.empty((n, c), dtype=torch.float32, device=fi.device)
-    rc = fn(fi.data_ptr(), fj.data_ptr(), vt.data_ptr(), out.data_ptr(), n,
-            m_pad, f, c, nb, stream)
-    return rc, out, vt
+    rc = fn(fi.data_ptr(), fj.data_ptr(), bufs.vt.data_ptr(), out.data_ptr(),
+            bufs.ws.data_ptr(), bufs.counters.data_ptr(), n, m,
+            bufs.vt.shape[1], f, c, bufs.width, bufs.split, bufs.ws.numel(),
+            bufs.counters.numel(), stream)
+    return rc, out, bufs
 
 
 def kernel_matmul_fn(features: torch.Tensor, features_j=None):
     """values [M, C] -> ``gaussian_kernel_matmul(features, values,
-    features_j)``, with the features checked and, on the card, packed once
-    (the CRF makes one per image and calls it once per message)."""
+    features_j)``, with the features checked and, on the card, packed
+    once (the CRF makes one per image and calls it once per message)."""
     fj_src = features if features_j is None else features_j
     f, m = features.shape[1], fj_src.shape[0]
     if fj_src.shape[1] != f or not 1 <= f <= 8:
@@ -114,28 +184,36 @@ def kernel_matmul_fn(features: torch.Tensor, features_j=None):
             return kernel_matmul_plain(features, values, features_j)
         return plain
 
-    m_pad = -(-m // _MATMUL_BJ) * _MATMUL_BJ
-    fj = pack_features(fj_src, m_pad)
-    fi = fj[:features.shape[0]] if features_j is None else \
-        pack_features(features, features.shape[0])
+    n = features.shape[0]
+    if n == 0 or m == 0:
+        def empty(values):  # nothing to sum: no launch
+            check_values(values)
+            return torch.zeros((n, values.shape[1]), dtype=torch.float32,
+                               device=features.device)
+        return empty
+
+    fj = pack_features(fj_src)
+    fi = fj if features_j is None else pack_features(features)
     _build.require_cuda("gaussian_kernel_matmul", fi=fi, fj=fj)
     f_kernel = 5 if f <= 5 else 8
-    # v^T buffers by channel count, their pads zeroed once. Rewriting one
-    # is safe: the copy and the launches that read it are ordered on the
-    # current stream.
-    vts = {}
+    # MatmulBufs by channel count, made at the first launch and kept on
+    # the returned function as ``bufs`` (the launch shape that ran).
+    # Rewriting v^T is safe: the copy and the launches that read it are
+    # ordered on the current stream, and each launch leaves its counters 0.
+    bufs = {}
 
     def launch(values):
         check_values(values)
         lib = _build.library("crf_matmul")
         c = values.shape[1]
-        rc, out, vts[c] = launch_matmul(
+        rc, out, bufs[c] = launch_matmul(
             lib.gaussian_kernel_matmul, fi, fj, f_kernel, values,
-            _build.stream_ptr(fi), vts.get(c))
+            _build.stream_ptr(fi), bufs.get(c))
         _build.check(lib, rc, "gaussian_kernel_matmul")
         _build.LAUNCHES["gaussian_kernel_matmul"] += 1
         return out
 
+    launch.bufs = bufs
     return launch
 
 

@@ -6,10 +6,11 @@ and K4 (flash_mha_qkv_proj), the flash kernel (K2/K7/K9) and the CRF's K5
 work taken out, or with another block shape, and timed at its main-path
 shapes (336 px; K4 at 768 px, B = 12, S = 2305; the flash kernel also at
 S = 2305 with head dim 64 and 128; K5 and K6 at chip_smoke.py's shapes,
-M = 2304 anchors, N = 36864 pixels, R = 64, v = 2, c = 29; K8 at the
-exact CRF's N = M = 36864, C = 58 and C = 1) beside the full kernel.
+M = 2304 anchors, N = 36864 pixels, R = 64, v = 2, c = 29; K8 at
+chip_smoke.py's four shapes) beside the full kernel.
 
     python3 scripts/kernel_ablation.py [--out DIR] [--kernels SRC,...]
+        [--variants NAME,...]
 
 Variants (built from the sources in ``pnp_ovss_tpu_torch/csrc`` with a
 textual edit of the source or of a header it includes, into ``DIR``;
@@ -36,14 +37,28 @@ their outputs are wrong by design and only their times are read):
   (D = 64) or 3 (D = 128), ``rb2`` gives each warp two blocks of 16 query
   rows, ``warps8`` a block 8 warps in place of 4, ``stages3`` a ring of 3
   K/V tiles in place of 2;
-- K8: ``no_ex2`` uses d^2 itself as k, ``two_diffs`` sums 2 of the 5
-  squared differences, ``no_mma`` replaces the products by a register
-  update, ``no_stage`` stages only the first 64 columns (the loop reads
-  stale shared memory); and four variants whose outputs stay right:
-  ``warps3``, ``warps4`` and ``warps8`` give a block 3, 4 or 8 warps of
-  16 rows in place of 6, ``bj32`` stages 32 columns in place of 64.
-  Each K8 call goes through ``bilateral.launch_matmul``, as the wrapper's
-  does, so its time includes the copy of the values into v^T;
+- K8 (each at chip_smoke.py's four shapes: the exact CRF's message,
+  C = 58, and degree, C = 1, and both Nystrom shapes): ``no_ex2`` takes
+  the exponent itself as k, ``no_mma`` replaces the products by a
+  register update, ``no_ex2_no_mma`` both, ``no_cvt`` rounds k to bf16
+  by truncation (a byte permute) in place of cvt.rn, ``skeleton`` takes
+  one multiply an entry in place of the exponent's arithmetic,
+  ``no_loads`` skips the ring's TMA loads (stale tiles); variants whose
+  outputs stay right: ``minb2`` caps registers for 2 blocks an SM in
+  place of 3 at W <= 64, ``step_issue`` issues each k16 step's products
+  as soon as its fragments are packed, ``bfs`` orders a step's
+  arithmetic breadth first, ``stages3`` a ring of 3 stages in place of
+  4, ``one_tile`` / ``three_tiles`` give a warpgroup 1 or 3 m64 row
+  tiles in place of 2, ``expansion`` takes the f32 expansion
+  2a.b - |a|^2 - |b|^2 in place of explicit differences (on
+  ``pack_expansion``'s operands, centred at the midrange, and as
+  ``no_center`` uncentred; its error against the plain version is
+  printed beside its time); on the full build ``split1`` / ``split2`` /
+  ``split4`` / ``split8`` force the j split in place of
+  ``bilateral.matmul_plan``'s (buffers from ``bilateral.matmul_bufs``),
+  and the wrapper's copy of the values into v^T is timed alone. Each K8
+  call goes through ``bilateral.launch_matmul``, as the wrapper's does,
+  so its time includes that copy;
 - K5 (uint8 kind; codes are compared with the plain version's): ``expf``
   takes the exponent as expf(-d2/2) * 255 in place of one ex2.approx over
   prescaled features, ``f2i`` rounds with F2I.RN in place of the magic
@@ -69,19 +84,13 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import math
 import os
 import subprocess
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
-
-# The 16816 product replaced by a cheap register update that keeps the
-# operands live.
-_NO_MMA = ("namespace {", "namespace {\n"
-           "__device__ __forceinline__ void no_mma(float (&d)[4], "
-           "const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {\n"
-           "  d[0] += __uint_as_float(a[0] ^ b0 ^ b1);\n}")
 
 # An edit is (old, new) in the source itself or (header, old, new) in a
 # header it includes from csrc/.
@@ -96,10 +105,132 @@ _NO_LN = ("int err = gm::launch_layer_norm(x, gamma, beta, xn, M, D, eps, "
 
 # K6: its product call; the K^T or qsub box loads skipped, with the
 # stage's barrier told to expect only what is still loaded.
-_K6_WGMMA = "wgmma_m64n64k16_rs(acc[i], a[s][i], db + 2 * s);"
+_K6_WGMMA = "pnp::hopper::wgmma_rs<64>(acc[i], a[s][i], db + 2 * s);"
 _K6_EXPECT = "pnp::hopper::mbar_expect_tx(&full[slot], kStageBytes);"
 _K6_TMA_Q = "pnp::hopper::tma_load_2d(q_tile(slot), &tm_q,"
 _K6_TMA_K = "pnp::hopper::tma_load_2d(smem + slot * kStageBytes + kQTile"
+
+# K8: its exponent (explicit differences) and product lines, and the
+# f32 expansion in their place (row and column norms at feature F).
+_K8_EXP = """          float d2 = 0.f;
+#pragma unroll
+          for (int d = 0; d < F; ++d) {
+            const float e = ra[r][d] - b[d];
+            d2 = fmaf(e, e, d2);
+          }
+          k[r][c] = exp2_ftz(-d2);"""
+_K8_EXPANSION = """          float x = b[F];
+#pragma unroll
+          for (int d = 0; d < F; ++d) x = fmaf(ra[r][d], b[d], x);
+          k[r][c] = exp2_ftz(x + ra[r][F]);"""
+_K8_ROW_LOAD = "for (int d = 0; d < F; ++d) ra[r][d] = row < N ? p[d] : 0.f;"
+_K8_WGMMA = "pnp::hopper::wgmma_rs<W>(acc[i], a[s][i], db + 2 * s);"
+_K8_SKELETON = (_K8_EXP,
+                "          k[r][c] = ra[r][c & 1] * b[r % F];")
+_K8_EXPECT = "pnp::hopper::mbar_expect_tx(&full[slot], kStage);"
+_K8_TMA_V = "pnp::hopper::tma_load_2d(v_tile(slot), &tm_v,"
+_K8_TMA_F = "pnp::hopper::tma_load_2d(smem + slot * kStage + W * kBJ * 2,"
+_K8_NO_EX2 = ("k[r][c] = exp2_ftz(-d2);", "k[r][c] = -d2;")
+_K8_NO_MMA = (_K8_WGMMA, "acc[i][0] += __uint_as_float(a[s][i][0] ^ "
+              "a[s][i][1] ^ a[s][i][2] ^ a[s][i][3]);")
+_K8_BOUNDS = ("__launch_bounds__(kThreads, (F == 5 && W <= 64) ? 3 : 2)",
+              "__launch_bounds__(kThreads, 2)")
+# Each k16 step's products issued as soon as its fragments are packed.
+_K8_STEP_ISSUE = [
+    ("    const float* fs = f_tile(it % kStages);\n",
+     "    const float* fs = f_tile(it % kStages);\n"
+     "    const uint64_t db =\n"
+     "        pnp::hopper::desc_sw128(v_tile(it % kStages));\n"),
+    ("""    const uint64_t db = pnp::hopper::desc_sw128(v_tile(it % kStages));
+    pnp::hopper::wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < kBJ / 16; ++s)
+#pragma unroll
+      for (int i = 0; i < kTiles; ++i)
+        pnp::hopper::wgmma_rs<W>(acc[i], a[s][i], db + 2 * s);
+    pnp::hopper::wgmma_commit();""", "    pnp::hopper::wgmma_commit();"),
+    ("""        a[s][i][3] = pnp::pack_bf16x2(k[2 * i + 1][2], k[2 * i + 1][3]);
+      }
+""", """        a[s][i][3] = pnp::pack_bf16x2(k[2 * i + 1][2], k[2 * i + 1][3]);
+      }
+      pnp::hopper::wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < kTiles; ++i)
+        pnp::hopper::wgmma_rs<W>(acc[i], a[s][i], db + 2 * s);
+""")]
+# A k16 step's exponents breadth first: each feature's differences for
+# all 16 entries, then the next feature's (outputs unchanged).
+_K8_STEP_BODY = """      float k[2 * kTiles][4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float b[F];
+        load_column(fs + (s * 16 + 2 * t + (c & 1) + 8 * (c >> 1)) * kFLd, b);
+#pragma unroll
+        for (int r = 0; r < 2 * kTiles; ++r) {
+          float d2 = 0.f;
+#pragma unroll
+          for (int d = 0; d < F; ++d) {
+            const float e = ra[r][d] - b[d];
+            d2 = fmaf(e, e, d2);
+          }
+          k[r][c] = exp2_ftz(-d2);
+        }
+      }
+"""
+_K8_STEP_BFS = """      float b[4][F], k[2 * kTiles][4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        load_column(fs + (s * 16 + 2 * t + (c & 1) + 8 * (c >> 1)) * kFLd,
+                    b[c]);
+#pragma unroll
+        for (int r = 0; r < 2 * kTiles; ++r) k[r][c] = 0.f;
+      }
+#pragma unroll
+      for (int d = 0; d < F; ++d)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int r = 0; r < 2 * kTiles; ++r) {
+            const float e = ra[r][d] - b[c][d];
+            k[r][c] = fmaf(e, e, k[r][c]);
+          }
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int r = 0; r < 2 * kTiles; ++r) k[r][c] = exp2_ftz(-k[r][c]);
+"""
+# Runs of each K8 build: {run: (packing, split)}; packing None is the
+# wrapper's, else the expansion's operands centred or not; split None is
+# bilateral.matmul_plan's. Builds with another row tile than 128 rows.
+K8_RUNS = {"full": {"full": (None, None), "split1": (None, 1),
+                    "split2": (None, 2), "split4": (None, 4),
+                    "split8": (None, 8)},
+           "expansion": {"expansion": ("centred", None),
+                         "no_center": ("uncentred", None)}}
+K8_ROWS = {"one_tile": 64, "three_tiles": 192}
+
+
+def expansion_centre(fi, fj):
+    """The expansion's centre [F] f32: the midrange, per feature, of both
+    sides' scaled features. Translating both sides by it leaves every
+    exponent as it is and keeps the expansion's norms small."""
+    s = (0.5 / math.log(2.0)) ** 0.5
+    lo = (fi.float() * s).amin(0).minimum((fj.float() * s).amin(0))
+    hi = (fi.float() * s).amax(0).maximum((fj.float() * s).amax(0))
+    return (lo + hi) * 0.5
+
+
+def pack_expansion(features, centre, j_side: bool):
+    """The ``expansion`` build's operands of x_ij = 2 a_i . b_j - |a_i|^2 -
+    |b_j|^2 in K8's [rows, 12] layout: the scaled features less ``centre``
+    (twice that on the j side) in columns 0..F-1 and minus the squared
+    norm of the undoubled row (float64, rounded once) in column F."""
+    rows, f = features.shape
+    a = features.float() * (0.5 / math.log(2.0)) ** 0.5 - centre
+    out = features.new_zeros((rows, 12), dtype=a.dtype)
+    out[:, :f] = 2.0 * a if j_side else a
+    out[:, f] = -a.double().square().sum(1).float()
+    return out
 
 VARIANTS = {
     "ln_matmul": {
@@ -185,36 +316,56 @@ VARIANTS = {
     },
     "crf_matmul": {
         "full": [],
-        "no_ex2": [("k[h][q] = exp2_neg(d2);", "k[h][q] = d2;")],
-        "two_diffs": [("for (int d = 0; d < F; ++d) {\n            const "
-                       "float diff", "for (int d = 0; d < 2; ++d) {\n     "
-                       "       const float diff")],
+        "no_ex2": [_K8_NO_EX2],
         # K8 computes its A fragment itself, so the stand-in reads all of
         # it or the compiler drops the unread kernel entries.
-        "no_mma": [
-            (_NO_MMA[0], _NO_MMA[1].replace(
-                "a[0] ^ b0", "a[0] ^ a[1] ^ a[2] ^ a[3] ^ b0")),
-            ("pnp::mma_bf16_16816(acc[2 * nb],", "no_mma(acc[2 * nb],"),
-            ("pnp::mma_bf16_16816(acc[2 * nb + 1],",
-             "no_mma(acc[2 * nb + 1],")],
-        "no_stage": [("      stage(buf ^ 1, (jt + 1) * kBJ);", "")],
-        "warps3": [("kWarps = 6;", "kWarps = 3;")],
-        "warps4": [("kWarps = 6;", "kWarps = 4;")],
-        "warps8": [("kWarps = 6;", "kWarps = 8;")],
-        "bj32": [("kBJ = 64;", "kBJ = 32;")],
+        "no_mma": [_K8_NO_MMA],
+        "no_ex2_no_mma": [_K8_NO_EX2, _K8_NO_MMA],
+        # bf16 by truncation (a byte permute) in place of cvt.rn.
+        "no_cvt": [("pnp::pack_bf16x2(k", "trunc_pack(k"),
+                   ("template <int F, int W>\n__global__",
+                    "__device__ __forceinline__ uint32_t trunc_pack(float x, "
+                    "float y) {\n  return __byte_perm(__float_as_uint(x), "
+                    "__float_as_uint(y), 0x7632);\n}\n\n"
+                    "template <int F, int W>\n__global__")],
+        "minb2": [_K8_BOUNDS],
+        "step_issue": _K8_STEP_ISSUE,
+        "stages3": [("constexpr int kStages = 4;",
+                     "constexpr int kStages = 3;")],
+        "bfs": [(_K8_STEP_BODY, _K8_STEP_BFS)],
+        # One multiply an entry in place of its exponent: what the loop
+        # costs without the exponents' arithmetic.
+        "skeleton": [_K8_SKELETON],
+        # The ring's loads skipped (stale tiles), each stage's barrier only
+        # arrived on.
+        "no_loads": [(_K8_EXPECT, "pnp::hopper::mbar_arrive(&full[slot]);"),
+                     (_K8_TMA_V, "if (0) " + _K8_TMA_V),
+                     (_K8_TMA_F, "if (0) " + _K8_TMA_F)],
+        "three_tiles": [("constexpr int kTiles = 2;",
+                         "constexpr int kTiles = 3;"), _K8_BOUNDS],
+        "expansion": [("float ra[2 * kTiles][F];",
+                       "float ra[2 * kTiles][F + 1];"),
+                      (_K8_ROW_LOAD, _K8_ROW_LOAD.replace("d < F", "d <= F")),
+                      ("float b[F];", "float b[F + 1];"),
+                      (_K8_EXP, _K8_EXPANSION)],
+        "one_tile": [("constexpr int kTiles = 2;",
+                      "constexpr int kTiles = 1;")],
     },
 }
 
 
-def build(out_dir: str, sources):
-    """Compile every variant of ``sources`` in parallel, each in its own
-    directory beside its edited headers (a quoted include finds them
-    before csrc/'s). Returns {(kernel, variant): lib}."""
+def build(out_dir: str, sources, only=None):
+    """Compile every variant of ``sources`` (or those named in ``only``) in
+    parallel, each in its own directory beside its edited headers (a
+    quoted include finds them before csrc/'s). Returns {(kernel,
+    variant): lib}."""
     from pnp_ovss_tpu_torch.ops import _build
 
     procs = {}
     for src in sources:
         for name, edits in VARIANTS[src].items():
+            if only is not None and name not in only:
+                continue
             files = {f"{src}.cu": None}
             for edit in edits:
                 fname, old, new = edit if len(edit) == 3 else (
@@ -254,6 +405,9 @@ def main() -> int:
     ap.add_argument("--kernels", default=",".join(VARIANTS),
                     help="sources to ablate, comma-separated (default all: "
                     f"{','.join(VARIANTS)})")
+    ap.add_argument("--variants", default=None,
+                    help="variant names to build, comma-separated (default "
+                    "all of each source)")
     args = ap.parse_args()
     sources = args.kernels.split(",")
     if not set(sources) <= set(VARIANTS):
@@ -264,7 +418,7 @@ def main() -> int:
     from torch.nn import functional as F
 
     import chip_smoke
-    from pnp_ovss_tpu_torch.ops import bilateral, vit_block
+    from pnp_ovss_tpu_torch.ops import _build, bilateral, vit_block
 
     if not torch.cuda.is_available():
         print("kernel_ablation: no CUDA device", file=sys.stderr)
@@ -272,13 +426,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(chip_smoke.card_line(), flush=True)
     os.makedirs(args.out, exist_ok=True)
-    libs = build(args.out, sources)
+    libs = build(args.out, sources,
+                 args.variants and set(args.variants.split(",")))
 
     cfg = chip_smoke.full_config(336)
     vit = cfg.model.vit
     m, d = cfg.batch_size * vit.seq_len, vit.hidden_size
     n, f = 3 * d, int(d * vit.mlp_ratio)
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def randn(*shape, scale=1.0):
@@ -313,19 +469,23 @@ def main() -> int:
                              torch.empty((fb, fs, fh * fd),
                                          dtype=torch.bfloat16, device=dev),
                              fb, fs, fh, fd))
-    # K8 at the exact CRF's shape: the pixel features of the 192 bucket.
-    hb = chip_smoke.BUCKET
-    feats = chip_smoke.photo_like_rgb(hb, hb, gen).reshape(-1, 3) / 5.0
-    pos = torch.stack(torch.meshgrid(
-        torch.arange(hb, device=dev), torch.arange(hb, device=dev),
-        indexing="xy"), -1).reshape(-1, 2) / 50.0
-    feats = torch.cat([pos, feats], 1)
-    n8 = feats.shape[0]
-    fp = bilateral.pack_features(feats, n8)  # N is a multiple of 64
-    k8_vals = {c: torch.rand((n8, c), generator=gen, device=dev)
-               for c in (58, 1)}
-    k8_ref = {c: bilateral.gaussian_kernel_matmul(feats, v)
-              for c, v in k8_vals.items()}
+    # K8 at chip_smoke.py's four shapes and features, packed for each run;
+    # the plain version on the first 1024 rows of each.
+    k8_support = chip_smoke.k8_support(cfg, gen)
+    k8_cases = []
+    for label, side_i, side_j, c, signed, _ in chip_smoke.K8_SHAPES:
+        fi8, fj8 = k8_support[side_i], k8_support[side_j]
+        vals = chip_smoke.k8_values(fj8.shape[0], c, signed, gen)
+        centre = expansion_centre(fi8, fj8)
+        packed = {None: (bilateral.pack_features(fi8),
+                         bilateral.pack_features(fj8))}
+        for key, cc in (("centred", centre),
+                        ("uncentred", torch.zeros_like(centre))):
+            packed[key] = (pack_expansion(fi8, cc, False),
+                           pack_expansion(fj8, cc, True))
+        ref = bilateral.kernel_matmul_plain(fi8[:1024], vals, fj8)
+        k8_cases.append((label, fi8.shape[0], fj8.shape[0], vals, packed,
+                         ref))
     # K4 at the 768 px leg: its qkv, residual, proj weights, head-output
     # scratch (written by the full variant, read by proj_only) and output.
     pb_, ps_ = 12, 2305
@@ -350,7 +510,7 @@ def main() -> int:
         print(f"torch read of K^T (int64 sum over its {kt.numel()} bytes): "
               f"{ms:.4f} ms ({kt.numel() / ms / 1e6:.1f} GB/s)", flush=True)
     print(f"336 px main-path shapes: M={m}, D={d}, N={n}, F={f}; K4 B="
-          f"{pb_} S={ps_}; K8 N=M={feats.shape[0]}", flush=True)
+          f"{pb_} S={ps_}; K8 {[case[0] for case in k8_cases]}", flush=True)
     for (src, name), lib in libs.items():
         if src == "crf_materialize":
             fn = lib.gaussian_kernel_materialize
@@ -397,20 +557,42 @@ def main() -> int:
             continue
         if src == "crf_matmul":
             fn = lib.gaussian_kernel_matmul
-            fn.argtypes = [P] * 4 + [I] * 5 + [P]
-            for c, vals in k8_vals.items():
-                _, out, vt = bilateral.launch_matmul(fn, fp, fp, 5, vals,
-                                                     stream)
-                # The full kernel's outputs: 0 for the variants that keep
-                # them right.
-                diff = (out - k8_ref[c]).abs().max().item()
-                ms = chip_smoke.time_ms(
-                    lambda fn=fn, vals=vals, vt=vt: bilateral.launch_matmul(
-                        fn, fp, fp, 5, vals, stream, vt), 10)
-                pairs = float(n8) * n8
-                print(f"{src} {name} C={c}: {ms:.4f} ms "
-                      f"({pairs / ms / 1e9:.3f} T pairs/s; max |out - full| "
-                      f"{diff:.3g})", flush=True)
+            fn.argtypes = _build.SOURCES["crf_matmul"]["gaussian_kernel_matmul"]
+            runs = K8_RUNS.get(name, {name: (None, None)})
+            for label, n8, m8, vals, packed, ref in k8_cases:
+                bms = chip_smoke.k8_bound_ms(n8, m8, vals.shape[1])[0]
+                width, _, plan_split = bilateral.matmul_plan(
+                    n8, m8, vals.shape[1], sms)
+                for mode, (packing, split) in runs.items():
+                    fi8, fj8 = packed[packing]
+                    bufs = bilateral.matmul_bufs(
+                        n8, m8, vals.shape[1], dev, width,
+                        split or plan_split, K8_ROWS.get(name, 128))
+                    rc, out, bufs = bilateral.launch_matmul(
+                        fn, fi8, fj8, 5, vals, stream, bufs)
+                    if rc != 0:
+                        raise SystemExit(f"{src} {mode} {label}: launch "
+                                         f"failed ({rc})")
+                    # Against plain: a variant that keeps its outputs
+                    # right reads as the full kernel does.
+                    err = ((out[:1024] - ref).abs().max()
+                           / ref.abs().max()).item()
+                    ms = chip_smoke.time_ms(
+                        lambda fn=fn, fi8=fi8, fj8=fj8, vals=vals,
+                        bufs=bufs: bilateral.launch_matmul(
+                            fn, fi8, fj8, 5, vals, stream, bufs), 10)
+                    print(f"{src} {mode} {label}: {ms:.4f} ms "
+                          f"({float(n8) * m8 / ms / 1e9:.3f} T pairs/s, "
+                          f"{ms / bms:.2f}x its bound {bms:.4f}; "
+                          f"max|out - plain|/max|plain| {err:.3g})",
+                          flush=True)
+                if name == "full":  # the wrapper's copy of v into v^T
+                    vt = bufs[0]
+                    ms = chip_smoke.time_ms(
+                        lambda vt=vt, vals=vals, m8=m8: vt[:, :m8].copy_(
+                            vals.t()), 10)
+                    print(f"{src} v^T copy alone {label}: {ms:.4f} ms",
+                          flush=True)
             continue
         if src == "flash_attention":
             fn = lib.flash_mha_flat_bf16

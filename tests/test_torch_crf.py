@@ -206,6 +206,89 @@ def test_kernel_matmul_matches_jax_kernel(n, m, c):
                   + 1e-6)
 
 
+def _photo_features(shift, rng):
+    """Bilateral features of the exact CRF at the main path's scale: a
+    192 px photo-like scene (``_scene``'s texture and noise) scaled as the
+    runner scales it for a 500x375 GT, the colours shifted by ``shift``
+    feature units."""
+    image, _ = _scene(rng, 192, 192)
+    cfg = CRFConfig()
+    feats = port_crf.bilateral_features(
+        _t(image), cfg.bi_xy_std * torch.tensor([192 / 375, 192 / 500]),
+        cfg.bi_rgb_std)
+    feats[:, 2:] += shift
+    return feats
+
+
+def _expansion_exponent(f):
+    """log2 k by the f32 expansion K8 does not take (the ablation's
+    ``expansion`` build): x = (-|b|^2 + sum_d a_d * 2 b_d) - |a|^2 over the
+    scaled features less their midrange, each FMA rounded to f32 once."""
+    a = f.float() * (0.5 / np.log(2.0)) ** 0.5
+    a = a - (a.amin(0) + a.amax(0)) * 0.5
+    norm = -a.double().square().sum(1).float()
+    x = norm[None, :].expand(a.shape[0], -1)
+    for d in range(a.shape[1]):
+        x = (a[:, d, None].double() * (2.0 * a[None, :, d]).double()
+             + x).float()
+    return x + norm[:, None]
+
+
+@pytest.mark.parametrize("shift", [0.0, 40.0])
+def test_kernel_matmul_exponent_is_f1_safe(shift):
+    """ROADMAP F1 for K8's exponent: explicit f32 differences of the
+    prescaled features (``kernel_matmul_exponent``, the kernel's
+    arithmetic) against the float64 exponent -||f_i - f_j||^2 / (2 ln 2)
+    over all pairs of 2000 pixels of the photo-like scene, as is and with
+    every colour shifted by +40 units. Bounds: 1e-5 on pairs with k > 1/2
+    (where a flipped bf16 code costs the most), 2e-4 on pairs with
+    k > 2^-30 (the ones a sum can see), 1e-3 on all. Seeded readings (as
+    is / shifted): 2.7e-6 / 6.6e-6, 3.9e-5 / 8.5e-5, 3.7e-4 / 5.8e-4. The
+    f32 expansion 2a.b - |a|^2 - |b|^2 over features centred at their
+    midrange reads 6.1e-5 on pairs with k > 1/2, past the first bound
+    (uncentred: 4.9e-4 / 2.0e-3): on the card it moved the exact message
+    1.4e-3 from the plain version against chip_smoke's bar of 7e-4, so K8
+    keeps explicit differences."""
+    rng = np.random.RandomState(41)
+    feats = _photo_features(shift, rng)
+    f = feats[torch.from_numpy(rng.choice(feats.shape[0], 2000,
+                                          replace=False))]
+    scaled = f.double() * (0.5 / np.log(2.0)) ** 0.5
+    exact = -((scaled[:, None] - scaled[None]) ** 2).sum(-1)
+    large, seen = exact > -1, exact > -30
+    err = (port_bp.kernel_matmul_exponent(f).double() - exact).abs()
+    print(f"shift {shift}: max |x - exact| {err[large].max().item():.3g} "
+          f"where k > 1/2, {err[seen].max().item():.3g} where k > 2^-30, "
+          f"{err.max().item():.3g} over all pairs")
+    assert err[large].max().item() <= 1e-5
+    assert err[seen].max().item() <= 2e-4
+    assert err.max().item() <= 1e-3
+    expanded = _expansion_exponent(f)
+    assert (expanded.double() - exact).abs()[large].max().item() > 1e-5
+
+
+@pytest.mark.parametrize("n,m,c,want,units", [
+    (36864, 36864, 58, (64, 1, 5), 1440),  # exact message
+    (36864, 36864, 1, (8, 1, 5), 1440),  # exact degree: n = 8
+    (2304, 36864, 58, (64, 1, 22), 396),  # Nystrom K_AN
+    (36864, 2304, 58, (64, 1, 2), 576),  # Nystrom K_NA: 36 stages a tile
+    (1000, 1000, 150, (96, 2, 4), 64),  # two 96-channel chunks
+    (777, 130, 82, (96, 1, 1), 7),  # --max_classes 40, 3 stages: no split
+])
+def test_kernel_matmul_plan(n, m, c, want, units):
+    """K8's launch shape on the H100's 132 SMs: C = 58 at wgmma n = 64, the
+    degree at n = 8, more than 128 channels in equal chunks, and j split
+    so that every SM runs close to the same number of units: the exact
+    shape's 288 row tiles x 5 = 1440 units, 10.9 an SM (a third tile on
+    24 SMs without the split), K_AN's 18 row tiles x 22 = 396, 3 an SM;
+    where a unit would hold few stages (K_NA's 36) the partial sums cost
+    more than the balance gains, and the split stays small or 1."""
+    width, chunks, split = port_bp.matmul_plan(n, m, c, 132)
+    assert (width, chunks, split) == want
+    assert width * chunks >= c and split <= -(-m // 64)
+    assert -(-n // 128) * chunks * split == units
+
+
 def test_kernel_matmul_reads_strided_values():
     """The CRF hands K8 transposed and strided views of its [C', N] state;
     the result equals that of a contiguous copy."""

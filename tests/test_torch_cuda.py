@@ -11,11 +11,17 @@ the main path's shapes: head dim 128, ragged sequence and pixel counts,
 row-padded anchors, one variant and fewer than 64 state rows; for the
 fused ViT kernels (K1, K3, K4) row counts that are no multiple of the
 row tile, narrow widths, masked keys and several key tiles; for K8 ragged
-N and M, M != N, 1 to 150 channels and strided values; the CRF's exact,
-Nystrom and general-loop branches on the card against the CPU; K7 at
+N and M, M != N, 1 to 150 channels, strided values, 8 features, the split
+over j, bit-equal launches, empty inputs and the stalled ring's trap; the
+CRF's exact, Nystrom and general-loop branches on the card against the
+CPU; K7 at
 ragged chunks against K2's rows, K9 at odd S, and a two-rank
 sequence-parallel encode with both ranks on the one card (gloo).
 """
+
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -198,43 +204,203 @@ def test_crf_iteration_kernel_matches_plain(cuda, v, c, r, m, n):
         bilateral.crf_fused_iteration(args[0], *cut, v=v, c=c)
 
 
-@pytest.mark.parametrize("n,m,c,view", [
-    (1000, None, 1, False), (1000, None, 58, False), (777, 130, 82, False),
-    (130, 777, 58, True), (1000, None, 150, True)])
-def test_kernel_matmul_matches_plain(cuda, n, m, c, view):
-    """K8 at ragged N and M (no multiple of the 96-row block or the 64-column
-    stage), M != N both ways, C = 1 (the degree), 58 (two variants of 29),
-    82 (--max_classes 40) and 150 (two 128-channel chunks), and values as a
-    strided transposed view. Both round k to bf16, so a k code may flip
-    where the summation order of the exponent differs: one bf16 ulp of one
-    term, bounded by 5e-3 of the largest output."""
-    gen = torch.Generator(device=cuda).manual_seed(8)
-    fi = _feats(gen, n)
-    fj = None if m is None else _feats(gen, m)
-    rows = n if m is None else m
-    # Clustered colours so that many pairs interact, not only the self term.
-    for f in (fi, fj):
-        if f is not None:
-            f[:, 2:] = (f[:, 2:] / 8).round() * 8 + 0.3 * _randn(
-                gen, f.shape[0], 3)
-    if view:
-        vals = _randn(gen, c, 2 * rows)[:, ::2].t()
-        assert not vals.is_contiguous()
-    else:
-        vals = _randn(gen, rows, c)
+def _photo_features(gen, shift=0.0):
+    """Bilateral features of a 192 px photo-like scene (smooth texture
+    with noise) scaled as the runner scales them for a 500x375 GT, the
+    colours shifted by ``shift`` feature units: the exact CRF's features
+    at the main path's magnitudes."""
+    hb = 192
+    yy, xx = torch.meshgrid(
+        torch.arange(hb, dtype=torch.float32, device=gen.device),
+        torch.arange(hb, dtype=torch.float32, device=gen.device),
+        indexing="ij")
+    img = torch.stack([120 + 60 * torch.sin(xx / 9) + 40 * yy / hb,
+                       100 + 50 * torch.cos(yy / 7) + 30 * xx / hb,
+                       90 + 45 * torch.sin((xx + yy) / 11)], -1)
+    img = (img + 12 * _randn(gen, hb, hb, 3)).clamp(0, 255)
+    cfg = CRFConfig()
+    scale = torch.tensor([hb / 375, hb / 500], device=gen.device)
+    feats = crf.bilateral_features(img, cfg.bi_xy_std * scale, cfg.bi_rgb_std)
+    feats[:, 2:] += shift
+    return feats
+
+
+def _matmul_vs_plain(fi, vals, fj=None):
+    """K8 through the wrapper (one counted launch) against its plain
+    version: max |K8 - plain| over max |plain|."""
     before = _build.LAUNCHES["gaussian_kernel_matmul"]
     out = bilateral.gaussian_kernel_matmul(fi, vals, fj)
     assert _build.LAUNCHES["gaussian_kernel_matmul"] == before + 1
     ref = bilateral.kernel_matmul_plain(fi, vals, fj)
-    assert out.shape == (n, c) and out.dtype == torch.float32
-    err = (out - ref).abs().max().item()
-    assert err <= 5e-3 * ref.abs().max().item(), err
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    return ((out - ref).abs().max() / ref.abs().max()).item()
+
+
+def _plan(fi, fj, c):
+    sms = torch.cuda.get_device_properties(fi.device).multi_processor_count
+    return bilateral.matmul_plan(fi.shape[0], fj.shape[0], c, sms)
+
+
+@pytest.mark.parametrize("n,m,c,view,scene", [
+    (1000, None, 1, False, "clustered"), (1000, None, 58, False, "clustered"),
+    (777, 130, 82, False, "clustered"), (130, 777, 58, True, "clustered"),
+    (1000, None, 150, True, "clustered"),
+    (2000, 36864, 58, False, "photo+40")])
+def test_kernel_matmul_matches_plain(cuda, n, m, c, view, scene):
+    """K8 at ragged N and M (no multiple of the 128-row tile or the
+    64-column stage), M != N both ways, C = 1 (the degree), 58 (two
+    variants of 29), 82 (--max_classes 40) and 150 (two 128-channel
+    chunks), and values as a strided transposed view; and on the exact
+    CRF's photo-like features with every colour shifted by +40 units
+    (2000 rows against all 36864 pixels), where the uncentred expansion
+    would lose ~2e-3 in the exponent. Both round k to bf16, so a k code
+    may flip where the exponent's rounding differs: one bf16 ulp of one
+    term, bounded by 5e-3 of the largest output."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    if scene == "photo+40":
+        fj = _photo_features(gen, 40.0)
+        fi = fj[torch.randperm(fj.shape[0], generator=gen, device=cuda)[:n]]
+        vals = torch.softmax(_randn(gen, m, 2, c // 2), -1).reshape(m, c)
+    else:
+        fi = _feats(gen, n)
+        fj = None if m is None else _feats(gen, m)
+        # Clustered colours so that many pairs interact, not only the self
+        # term.
+        for f in (fi, fj):
+            if f is not None:
+                f[:, 2:] = (f[:, 2:] / 8).round() * 8 + 0.3 * _randn(
+                    gen, f.shape[0], 3)
+        rows = n if m is None else m
+        if view:
+            vals = _randn(gen, c, 2 * rows)[:, ::2].t()
+            assert not vals.is_contiguous()
+        else:
+            vals = _randn(gen, rows, c)
+    err = _matmul_vs_plain(fi, vals, fj)
+    assert err <= 5e-3, err
+
+
+@pytest.mark.parametrize("n,m", [(300, 20037), (2304, 36864 - 40)])
+def test_kernel_matmul_split_over_j(cuda, n, m):
+    """Few row tiles against many columns (the Nystrom K_AN shape: 18
+    row tiles for 132 SMs) split j into chunks summed by the last unit of
+    each row tile; M is no multiple of a chunk or of a stage."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    fi, fj = _feats(gen, n), _feats(gen, m)
+    vals = _randn(gen, m, 58)
+    assert _plan(fi, fj, 58)[2] > 1
+    assert _matmul_vs_plain(fi, vals, fj) <= 5e-3
+
+
+def test_kernel_matmul_exact_shape_fills_the_card(cuda):
+    """The exact CRF's shape (N = M = 36864, C = 58): 288 row tiles split
+    over j into units that give every SM within 5% of the same count, and
+    the first 1024 rows against the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    feats = _photo_features(gen)
+    n = feats.shape[0]
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    width, chunks, split = bilateral.matmul_plan(n, n, 58, sms)
+    units = -(-n // 128) * chunks * split
+    print(f"exact shape on {sms} SMs: width {width}, split {split}, "
+          f"{units} units, {units / sms:.3f} an SM")
+    assert (width, chunks) == (64, 1)
+    assert -(-units // sms) <= 1.05 * units / sms
+    vals = torch.softmax(_randn(gen, n, 2, 29), -1).reshape(n, 58)
+    out = bilateral.gaussian_kernel_matmul(feats, vals)
+    ref = bilateral.kernel_matmul_plain(feats[:1024], vals, feats)
+    err = ((out[:1024] - ref).abs().max() / ref.abs().max()).item()
+    assert err <= 5e-3, err
+
+
+def test_kernel_matmul_degree_runs_n8(cuda):
+    """The degree launch (C = 1) runs wgmma's n = 8, with a split."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    fi = _feats(gen, 4096)
+    assert _plan(fi, fi, 1)[:2] == (8, 1)
+    assert _matmul_vs_plain(fi, torch.ones((4096, 1), device=cuda)) <= 5e-3
+
+
+@pytest.mark.parametrize("c,width,chunks", [(150, 96, 2), (82, 96, 1),
+                                            (129, 96, 2), (33, 48, 1)])
+def test_kernel_matmul_channel_chunks(cuda, c, width, chunks):
+    """C = 150 and 129 in two equal chunks (n = 96 each), C = 82 in one of
+    n = 96, C = 33 at n = 48."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    fi, fj = _feats(gen, 700), _feats(gen, 900)
+    assert _plan(fi, fj, c)[:2] == (width, chunks)
+    assert _matmul_vs_plain(fi, _randn(gen, 900, c), fj) <= 5e-3
+
+
+@pytest.mark.parametrize("f", [6, 8])
+def test_kernel_matmul_eight_features(cuda, f):
+    """F = 6..8 runs the 8-feature build (zeros beyond F)."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    fi = torch.rand((900, f), generator=gen, device=cuda) * 12
+    fj = torch.rand((1300, f), generator=gen, device=cuda) * 12
+    assert _matmul_vs_plain(fi, _randn(gen, 1300, 58), fj) <= 5e-3
+
+
+def test_kernel_matmul_is_deterministic(cuda):
+    """Two launches on the same inputs, at shapes with and without a
+    split over j, are bit-equal (the partials are summed in a fixed
+    order; no float atomics)."""
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    feats = _photo_features(gen)
+    anchors = feats.reshape(192, 192, 5)[::4, ::4].reshape(-1, 5)
+    for fi, fj, c in ((anchors, feats, 58), (feats, None, 58),
+                      (feats, None, 1), (feats[:500], feats[:300], 58)):
+        fn = bilateral.kernel_matmul_fn(fi, fj)
+        vals = torch.rand(((fi if fj is None else fj).shape[0], c),
+                          generator=gen, device=cuda)
+        a, b = fn(vals), fn(vals)
+        assert torch.equal(a, b)
+        assert torch.equal(a, bilateral.gaussian_kernel_matmul(fi, vals, fj))
+
+
+def test_kernel_matmul_stalled_ring_traps(cuda):
+    """A ring stage whose bytes never arrive ends the launch with an error
+    (the stage wait traps after ~2 s), not a hang. It runs in a child
+    process, since a trap leaves the CUDA context unusable."""
+    code = (
+        "import torch\n"
+        "from pnp_ovss_tpu_torch.ops import _build\n"
+        "lib = _build.library('crf_matmul')\n"
+        "torch.zeros(1, device='cuda')\n"
+        "rc = lib.gaussian_kernel_matmul_stall("
+        "torch.cuda.current_stream().cuda_stream)\n"
+        "print('launched:', rc)\n"
+        "try:\n"
+        "    torch.cuda.synchronize()\n"
+        "except RuntimeError as e:\n"
+        "    print('trapped:', e)\n")
+    root = Path(__file__).resolve().parent.parent
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600, cwd=root)
+    assert "launched: 0" in res.stdout, res.stdout + res.stderr
+    assert "trapped:" in res.stdout, res.stdout + res.stderr
 
 
 def test_kernel_matmul_refuses_mixed_devices(cuda):
     f = torch.zeros(64, 5, device=cuda)
     with pytest.raises(ValueError):
         bilateral.gaussian_kernel_matmul(f, torch.zeros(64, 3))
+
+
+def test_kernel_matmul_empty_inputs(cuda):
+    """No rows (N = 0) give an empty [0, C] result and no columns (M = 0)
+    zeros [N, C] on the card, as the plain version gives them on the CPU,
+    without a launch."""
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    fi, vals = _feats(gen, 300), _randn(gen, 300, 58)
+    before = _build.LAUNCHES["gaussian_kernel_matmul"]
+    for rows, cols, v in ((fi[:0], fi, vals),
+                          (fi, fi[:0], torch.zeros((0, 58), device=cuda))):
+        out = bilateral.gaussian_kernel_matmul(rows, v, cols)
+        ref = bilateral.kernel_matmul_plain(rows.cpu(), v.cpu(), cols.cpu())
+        assert out.device == v.device and out.dtype == torch.float32
+        assert torch.equal(out.cpu(), ref)
+    assert _build.LAUNCHES["gaussian_kernel_matmul"] == before
 
 
 def _crf_scene(seed, size, c, noise):

@@ -157,7 +157,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     repo = PKG.parent
     card_scripts = [repo / "chip_smoke.py",
                     repo / "scripts" / "profile_torch_port.py",
-                    repo / "scripts" / "kernel_ablation.py"]
+                    repo / "scripts" / "kernel_ablation.py",
+                    repo / "scripts" / "time_k8.py"]
     assert all(p.exists() for p in card_scripts)
     for path in files + card_scripts:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
