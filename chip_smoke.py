@@ -42,7 +42,20 @@ Phases, each of which exits non-zero on failure:
    range and maps finite, and reports img/s. Then the reference default
    sequence-parallel over two ranks on the card (K1, K7, K3), against the
    unsharded run's labels, and one 768 px sequence-parallel encode
-   against the unsharded encode.
+   against the unsharded encode;
+6. the segmentation CLI (``pnp_ovss_tpu_torch.cli.segment.main``, in this
+   process, on the card) over a synthetic VOC directory of 75 photo-like
+   JPEGs at VOC sizes with PNG ground truth and a GPT-4o class cache (two
+   full batches of 35 and a ragged tail of 5): its defaults (one r0 and
+   one agg hist per image, each summing to the image's pixels; launches
+   per batch those of the 336 px fused run, the tail batch included; the
+   CLI's wall img/s over the two full batches), the same command again
+   (resume: no launch, no file rewritten), the CLI's loader alone (its
+   img/s, no device work), ``--eval_at_bucket`` (every
+   device hist equal to numpy's, the run totals to the files' sums), and
+   ``--checkpoint`` twice on a full-width LAVIS-layout state dict drawn
+   from a seed at 384 px (every parameter equal to the dict's, the
+   position embeddings resampled; the second run reads the cache).
 
 The last four lines of output are the runs' img/s as JSON, one JSON
 object with every kernel's numbers, the card's name and power limit, and
@@ -1327,6 +1340,417 @@ def sp_full_check(ranks, unsharded: dict, card: str) -> dict:
                 encode_768_s=enc["seconds"])
 
 
+# Phase 6: the segmentation CLI in-process on a synthetic VOC directory.
+CLI_IMAGES = 75  # two full batches of 35 and a ragged tail of 5
+CLI_SIZES = ((375, 500), (500, 333))  # VOC-like GT sizes (H, W)
+CLI_CKPT_GRID = 24  # BLIP-ITM-Large ships at 384 px: a 24 x 24 pos grid
+
+
+def lavis_state_dict(cfg, seed: int, grid=None) -> dict:
+    """A BLIP-ITM state dict under LAVIS names at ``cfg``'s (a port
+    ``ModelConfig``) widths, drawn from ``seed`` with numpy: matrices
+    N(0, 1/fan_in), norms 1 + N(0, 0.1^2), biases and embeddings
+    N(0, 0.02^2); the ViT position grid ``grid`` x ``grid`` (default the
+    config's). It also carries keys of the retrieval checkpoint that the
+    loader must drop: momentum copies, ITC projections and queues, the
+    temperature, BERT's ``position_ids`` and token-type table."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def normal(shape, std):
+        x = rng.standard_normal(shape, dtype=np.float32)
+        x *= std
+        return x
+
+    def lin(name, n_in, n_out):
+        sd[name + ".weight"] = normal((n_out, n_in), n_in ** -0.5)
+        sd[name + ".bias"] = normal((n_out,), 0.02)
+
+    def ln(name, n):
+        sd[name + ".weight"] = 1 + normal((n,), 0.1)
+        sd[name + ".bias"] = normal((n,), 0.02)
+
+    v, c = cfg.vit, cfg.bert
+    d, p, g = v.hidden_size, v.patch_size, grid or v.grid
+    mlp = int(d * v.mlp_ratio)
+    sd["visual_encoder.patch_embed.proj.weight"] = normal(
+        (d, 3, p, p), (3 * p * p) ** -0.5)
+    sd["visual_encoder.patch_embed.proj.bias"] = normal((d,), 0.02)
+    sd["visual_encoder.cls_token"] = normal((1, 1, d), 0.02)
+    sd["visual_encoder.pos_embed"] = normal((1, g * g + 1, d), 0.02)
+    for i in range(v.num_layers):
+        b = f"visual_encoder.blocks.{i}"
+        ln(b + ".norm1", d)
+        lin(b + ".attn.qkv", d, 3 * d)
+        lin(b + ".attn.proj", d, d)
+        ln(b + ".norm2", d)
+        lin(b + ".mlp.fc1", d, mlp)
+        lin(b + ".mlp.fc2", mlp, d)
+    ln("visual_encoder.norm", d)
+    h = c.hidden_size
+    sd["text_encoder.embeddings.word_embeddings.weight"] = normal(
+        (c.vocab_size, h), 0.02)
+    sd["text_encoder.embeddings.position_embeddings.weight"] = normal(
+        (c.max_position_embeddings, h), 0.02)
+    ln("text_encoder.embeddings.LayerNorm", h)
+    for i in range(c.num_layers):
+        b = f"text_encoder.encoder.layer.{i}"
+        for part, kv_in in (("attention", h),
+                            ("crossattention", c.encoder_width)):
+            lin(f"{b}.{part}.self.query", h, h)
+            lin(f"{b}.{part}.self.key", kv_in, h)
+            lin(f"{b}.{part}.self.value", kv_in, h)
+            lin(f"{b}.{part}.output.dense", h, h)
+            ln(f"{b}.{part}.output.LayerNorm", h)
+        lin(b + ".intermediate.dense", h, c.intermediate_size)
+        lin(b + ".output.dense", c.intermediate_size, h)
+        ln(b + ".output.LayerNorm", h)
+    lin("itm_head", h, 2)
+    # Dropped by the loader (ITC dim 256, blip_itm_large.yaml:23).
+    lin("vision_proj", d, 256)
+    lin("text_proj", h, 256)
+    sd["visual_encoder_m.cls_token"] = sd["visual_encoder.cls_token"].copy()
+    sd["text_encoder_m.embeddings.LayerNorm.weight"] = \
+        sd["text_encoder.embeddings.LayerNorm.weight"].copy()
+    lin("vision_proj_m", d, 256)
+    for name in ("image_queue", "text_queue"):
+        sd[name] = normal((256, 57), 1.0)
+    sd["idx_queue"] = np.full((1, 57), -100, np.int64)
+    sd["queue_ptr"] = np.zeros((1,), np.int64)
+    sd["temp"] = np.asarray(0.07, np.float32)
+    sd["text_encoder.embeddings.position_ids"] = np.arange(
+        c.max_position_embeddings, dtype=np.int64)[None]
+    sd["text_encoder.embeddings.token_type_embeddings.weight"] = normal(
+        (2, h), 0.02)
+    return sd
+
+
+def write_fake_voc(root: str, n: int, seed: int = 0) -> dict:
+    """A VOC-layout dataset under ``root``: JPEGs from ``photo_like_rgb``
+    at VOC-like sizes, PNG ground truth with two or three classes and a
+    band of 255 (ignore), the val split, and the GPT-4o class cache in the
+    reference's raw two-list format (2-4 classes above 70%, one below).
+    Returns {image id: (H, W)}."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from pnp_ovss_tpu_torch.data.categories import get_dataset_meta
+
+    base = os.path.join(root, "VOCdevkit", "VOC2012")
+    for sub in ("JPEGImages", "SegmentationClass",
+                os.path.join("ImageSets", "Segmentation")):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+    os.makedirs(os.path.join(root, "GPT4o_classification"), exist_ok=True)
+    nms = get_dataset_meta("voc").nms
+    rng = np.random.RandomState(seed)
+    gen = torch.Generator().manual_seed(seed)
+    sizes, gpt = {}, {}
+    for i in range(n):
+        img_id = f"2007_{i:06d}"
+        h, w = CLI_SIZES[i % 2]
+        rgb = photo_like_rgb(h, w, gen).round().to(torch.uint8).numpy()
+        Image.fromarray(rgb).save(
+            os.path.join(base, "JPEGImages", img_id + ".jpg"), quality=90)
+        k = 2 + i % 3  # classes above the cutoff
+        ids = rng.choice(np.arange(1, len(nms) + 1), k + 1, replace=False)
+        gt = np.zeros((h, w), np.uint8)
+        gt[h // 5: h // 2, w // 6: w // 2] = ids[0]
+        gt[h // 2:, w // 2:] = ids[1]
+        if k > 2:
+            gt[: h // 6, w // 2:] = ids[2]
+        gt[h // 2 - 4: h // 2 + 4] = 255  # object boundary: ignored
+        Image.fromarray(gt).save(
+            os.path.join(base, "SegmentationClass", img_id + ".png"))
+        probs = [rng.randint(71, 100) for _ in range(k)] + [40]
+        gpt[img_id] = (
+            "[" + ", ".join(f"{j}: '{nms[j - 1]}'" for j in ids) + "], ["
+            + ", ".join(f"{j}: {pr}%" for j, pr in zip(ids, probs)) + "]")
+        sizes[img_id] = (h, w)
+    with open(os.path.join(base, "ImageSets", "Segmentation", "val.txt"),
+              "w") as f:
+        f.write("\n".join(sizes) + "\n")
+    with open(os.path.join(root, "GPT4o_classification",
+                           "voc_classification_noboundary.json"), "w") as f:
+        json.dump(gpt, f)
+    return sizes
+
+
+HIST_DIRS = ("hist_withfiltered_caption",
+             "all_drop_hist_with_filtered_caption")
+
+
+def read_hists(out: str, suffix: str = "") -> dict:
+    """{variant dir: {image id: hist}} of a CLI output directory."""
+    import numpy as np
+
+    hists = {}
+    for sub in HIST_DIRS:
+        d = os.path.join(out, sub + suffix)
+        hists[sub] = {
+            name[len("img_"):name.index("_max_blocknum")]:
+            np.load(os.path.join(d, name)) for name in sorted(os.listdir(d))}
+    return hists
+
+
+def cli_run(args) -> tuple:
+    """``cli.segment.main(args)`` on the card with the launch counts set
+    to 0 just before and read just after. Returns (its summary, the
+    counts, wall seconds)."""
+    import torch
+
+    from pnp_ovss_tpu_torch.cli import segment
+    from pnp_ovss_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = segment.main(args)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    torch.cuda.empty_cache()
+    return summary, counts, dt
+
+
+def cli_defaults(tmp: str, data: str, sizes: dict, card: str) -> tuple:
+    """Run A: the CLI's defaults (336 px, batch 35, fused ViT, blur +
+    strided s=4 CRF, random weights, toy vocab) over every image, then
+    run B: the same command again, which resume must skip whole, then the
+    CLI's loader alone. Returns (run A's launches, its row of the
+    pipeline line: img/s over the two full batches, each full batch's
+    host finalize seconds, the loader's img/s)."""
+    import numpy as np
+
+    cfg = full_config(336)
+    out = os.path.join(tmp, "out_a")
+    args = ["--data_type", "voc", "--home_dir", data, "--save_path", out]
+    summary, counts, dt = cli_run(args)
+    n_batches = -(-CLI_IMAGES // cfg.batch_size)  # the tail batch is padded
+    per_batch = expected_launches(cfg, _VIT_336)
+    want = {k: v * n_batches for k, v in per_batch.items()}
+    if counts != want:
+        raise SystemExit(f"FAIL: CLI run A launched {counts}, want {want} "
+                         f"({n_batches} batches of {per_batch})")
+    if summary["batch_images"] != [35, 35, 5] or \
+            len(summary["batch_done_s"]) != n_batches:
+        raise SystemExit(f"FAIL: CLI run A batches {summary}")
+    hists = read_hists(out)
+    for sub, per_image in hists.items():
+        if sorted(per_image) != sorted(sizes):
+            raise SystemExit(f"FAIL: CLI {sub}: {len(per_image)} files for "
+                             f"{len(sizes)} images")
+        for img_id, h in per_image.items():
+            if h.shape != (21, 21) or h.sum() != np.prod(sizes[img_id]):
+                raise SystemExit(f"FAIL: CLI {sub} {img_id}: shape "
+                                 f"{h.shape}, sum {h.sum()} for "
+                                 f"{sizes[img_id]} pixels")
+    agg = sum(hists[HIST_DIRS[1]].values())
+    if np.count_nonzero(agg.sum(0)) < 3:
+        raise SystemExit("FAIL: CLI predictions take fewer than 3 classes")
+    img_s = 2 * cfg.batch_size / summary["batch_done_s"][1]
+    finalize_s = summary["finalize_s"][:2]
+    print(f"  run A (defaults, {CLI_IMAGES} images): {dt:.1f} s in main, "
+          f"files complete, launches {counts} = {n_batches} x the 336 px "
+          f"fused run's; CLI wall {img_s:.3f} img/s over the two full "
+          "batches (JPEG decode, host finalize and file writes included) "
+          f"on {card}; host finalize of each full batch on the worker "
+          f"thread {finalize_s[0]:.3f} / {finalize_s[1]:.3f} s, the "
+          f"batches done at {summary['batch_done_s'][0]:.3f} / "
+          f"{summary['batch_done_s'][1]:.3f} s", flush=True)
+
+    mtimes = {p: os.path.getmtime(p) for sub in HIST_DIRS
+              for p in (os.path.join(out, sub, f)
+                        for f in os.listdir(os.path.join(out, sub)))}
+    summary, counts, dt = cli_run(args)
+    if summary["images"] != 0 or any(counts.values()) or mtimes != {
+            p: os.path.getmtime(p) for p in mtimes}:
+        raise SystemExit(f"FAIL: CLI resume ran {summary['images']} images,"
+                         f" launched {counts}, or rewrote files")
+    print(f"  run B (same command): resume skipped all {CLI_IMAGES} images,"
+          f" no launches, no file rewritten ({dt:.1f} s)", flush=True)
+    loader_img_s = loader_alone(data, cfg)
+    print(f"  the CLI's loader alone (decode, resizes, GT; 8 threads): "
+          f"{loader_img_s:.3f} img/s over the first two batches", flush=True)
+    return want, dict(img_per_s=img_s, images=2 * cfg.batch_size,
+                      finalize_s=finalize_s, loader_img_per_s=loader_img_s)
+
+
+def loader_alone(data: str, cfg) -> float:
+    """img/s of the CLI's ``PrefetchLoader`` alone over the dataset, timed
+    from its start to the second batch (no device work)."""
+    from pnp_ovss_tpu_torch.data.datasets import make_dataset
+    from pnp_ovss_tpu_torch.data.loader import PrefetchLoader
+
+    records = list(make_dataset("voc", data).records())
+    t0 = time.perf_counter()
+    for i, _ in enumerate(PrefetchLoader(records, batch_size=cfg.batch_size,
+                                         img_size=cfg.img_size,
+                                         bucket=BUCKET)):
+        if i == 1:
+            dt = time.perf_counter() - t0
+    return 2 * cfg.batch_size / dt
+
+
+def cli_eval_at_bucket(tmp: str, data: str) -> None:
+    """Run C: ``--eval_at_bucket --no_resume``. Every device hist equals
+    numpy ``fast_hist`` over the same bucket labels (copied to the host
+    for this check), tables and bucket GT, as integers; the files are the
+    real rows' hists and the run totals their sums."""
+    import numpy as np
+
+    from pnp_ovss_tpu_torch.evalx.metrics import fast_hist
+    from pnp_ovss_tpu_torch.pipeline.runner import SegmentationRunner
+
+    calls = []
+    make = SegmentationRunner.make_hist_fn
+
+    def spy(self, n_class):
+        fn = make(self, n_class)
+
+        def hist_fn(labels, tables, gt):
+            hists = fn(labels, tables, gt)
+            calls.append([x.cpu().numpy() for x in (labels, tables, gt,
+                                                    hists)])
+            return hists
+
+        return hist_fn
+
+    out = os.path.join(tmp, "out_c")
+    SegmentationRunner.make_hist_fn = spy
+    try:
+        cli_run(["--data_type", "voc", "--home_dir", data, "--save_path",
+                 out, "--eval_at_bucket", "--no_resume"])
+    finally:
+        SegmentationRunner.make_hist_fn = make
+    rows = 0
+    for labels, tables, gt, hists in calls:
+        pred = np.take_along_axis(
+            tables, labels.reshape(len(labels), -1).astype(np.int64), 1)
+        for i in range(len(labels)):
+            want = fast_hist(gt[i].ravel(), pred[i], 21)
+            if hists.dtype != np.int32 or not np.array_equal(hists[i], want):
+                raise SystemExit(f"FAIL: device hist of row {i} differs "
+                                 "from numpy fast_hist")
+            rows += 1
+    hists = read_hists(out, f"_bucket{BUCKET}")
+    for variant, sub in zip(("r0", "agg"), HIST_DIRS):
+        files = hists[sub]
+        total = np.load(os.path.join(
+            out, f"total_hist_{variant}_bucket{BUCKET}_rank0.npy"))
+        if len(files) != CLI_IMAGES or any(
+                h.sum() != BUCKET * BUCKET for h in files.values()) or \
+                not np.array_equal(total, sum(files.values())):
+            raise SystemExit(f"FAIL: --eval_at_bucket {variant}: files or "
+                             "run total wrong")
+    print(f"  run C (--eval_at_bucket): {rows} device hists (pad rows "
+          f"included) equal numpy fast_hist exactly; {CLI_IMAGES} files a "
+          "variant, run totals equal their sums", flush=True)
+
+
+def cli_checkpoint(tmp: str, data: str) -> None:
+    """Run D: ``--checkpoint`` on a full-width LAVIS-layout state dict at
+    384 px, ``--limit 35 --no_resume``, twice: the first run converts it
+    (every parameter equal to the dict's, the position embeddings to
+    ``interpolate_pos_embed`` of it) and caches it, the second reads the
+    cache (no conversion; the cached tensors equal the converted ones)."""
+    import numpy as np
+    import torch
+
+    from pnp_ovss_tpu_torch.models import cache, convert
+    from pnp_ovss_tpu_torch.models.vit import interpolate_pos_embed
+
+    cfg = full_config(336)
+    t0 = time.perf_counter()
+    sd = lavis_state_dict(cfg.model, seed=5, grid=CLI_CKPT_GRID)
+    path = os.path.join(tmp, "model_large_retrieval.pth")
+    torch.save({"model": {k: torch.from_numpy(np.asarray(v))
+                          for k, v in sd.items()}}, path)
+    size = os.path.getsize(path)
+    print(f"  run D: LAVIS-layout checkpoint {size / 1e9:.2f} GB at "
+          f"{CLI_CKPT_GRID * 16} px written in {time.perf_counter() - t0:.1f}"
+          " s", flush=True)
+    converted = []
+    real = convert.load_torch_checkpoint
+
+    def counting(*a, **kw):
+        converted.append(real(*a, **kw))
+        return converted[-1]
+
+    home = os.environ.get("HOME")
+    os.environ["HOME"] = os.path.join(tmp, "home")
+    convert.load_torch_checkpoint = counting
+    try:
+        outs = []
+        for run in (1, 2):
+            out = os.path.join(tmp, f"out_d{run}")
+            _, counts, dt = cli_run([
+                "--data_type", "voc", "--home_dir", data, "--save_path", out,
+                "--checkpoint", path, "--limit", "35", "--no_resume"])
+            outs.append(read_hists(out))
+            print(f"  run D{run}: {dt:.1f} s in main, conversions so far "
+                  f"{len(converted)}", flush=True)
+        store = cache.cache_path(path, cfg.model, cfg.attribution.layer - 1)
+    finally:
+        convert.load_torch_checkpoint = real
+        if home is None:
+            os.environ.pop("HOME")
+        else:
+            os.environ["HOME"] = home
+    if len(converted) != 1:
+        raise SystemExit(f"FAIL: {len(converted)} conversions in two runs; "
+                         "the second must read the cache")
+    for hists in outs:
+        if any(len(h) != 35 for h in hists.values()):
+            raise SystemExit("FAIL: a --checkpoint run wrote "
+                             f"{[len(h) for h in hists.values()]} hists")
+    params = converted[0].state_dict()
+    cached = torch.load(store, map_location="cpu", weights_only=True)
+    placed = 0
+    for key, val in sd.items():
+        name = convert.lavis_port_name(key)
+        if name not in params:
+            continue
+        want = torch.from_numpy(np.asarray(val))
+        if name == "visual_encoder.pos_embed":
+            want = interpolate_pos_embed(want, cfg.model.vit.num_patches)
+        got = params[name].cpu()
+        if not (torch.equal(got, want.to(got.dtype))
+                and torch.equal(cached[name], got)):
+            raise SystemExit(f"FAIL: loaded {name} differs from {key}")
+        placed += 1
+    if placed != len(params) or sorted(cached) != sorted(params):
+        raise SystemExit(f"FAIL: {placed} of {len(params)} parameters placed")
+    print(f"  run D: all {placed} parameters equal the checkpoint's (pos "
+          f"embed resampled {CLI_CKPT_GRID}x{CLI_CKPT_GRID} -> "
+          f"{cfg.model.vit.grid}x{cfg.model.vit.grid}), {len(sd) - placed} "
+          "keys dropped; the second run read the cache; 35 hists a run",
+          flush=True)
+
+
+def cli_phase(card: str) -> tuple:
+    """Phase 6: the CLI's runs A-D in a temporary directory, deleted at
+    the end. Returns (run A's launches, its row of the pipeline line)."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="pnp_cli_")
+    try:
+        data = os.path.join(tmp, "voc")
+        sizes = write_fake_voc(data, CLI_IMAGES)
+        launches, row = cli_defaults(tmp, data, sizes, card)
+        cli_eval_at_bucket(tmp, data)
+        cli_checkpoint(tmp, data)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches, row | dict(
+        note="python -m pnp_ovss_tpu_torch.cli.segment defaults over two "
+             "full batches: JPEG decode, host finalize and file writes "
+             "included")
+
+
 def main() -> int:
     import torch
 
@@ -1342,11 +1766,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     card = card_line()
-    print(f"[1/5] card: {card}", flush=True)
+    print(f"[1/6] card: {card}", flush=True)
 
     t0 = time.perf_counter()
     paths = _build.build_all()
-    print(f"[2/5] built {len(paths)} kernel libraries in "
+    print(f"[2/6] built {len(paths)} kernel libraries in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
@@ -1355,7 +1779,7 @@ def main() -> int:
 
     cfg, cfg768 = full_config(336), full_config(LEG_768[0])
     t0 = time.perf_counter()
-    print("[3/5] kernels vs plain at the main paths' shapes", flush=True)
+    print("[3/6] kernels vs plain at the main paths' shapes", flush=True)
     rows = kernels_vs_plain(cfg)
     rows.update(fused_vit_kernels(cfg, cfg768))
     rows["gaussian_kernel_matmul"] = kernel_matmul_check(cfg)
@@ -1368,7 +1792,7 @@ def main() -> int:
     print(f"  phase 3: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
-    print("[4/5] CRF branches and narrow pipelines, card vs CPU", flush=True)
+    print("[4/6] CRF branches and narrow pipelines, card vs CPU", flush=True)
     for args in CRF_BRANCHES:
         crf_branch_check(*args)
     for args in NARROW_RUNS:
@@ -1379,7 +1803,7 @@ def main() -> int:
     print(f"  phase 4: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
-    print("[5/5] full-width pipelines", flush=True)
+    print("[5/6] full-width pipelines", flush=True)
     # Launches of each run, in the order the kernels line reads them.
     runs, summaries, launch_runs = {}, {}, {}
     for name, size, fused, vit_kernels, post in FULL_RUNS:
@@ -1402,6 +1826,11 @@ def main() -> int:
     launch_runs["336 px fused SP (rank 0)"] = ranks[0]["full"]["launches"]
     launch_runs["192 px unfused 3 heads (narrow)"] = k9_counts
     print(f"  phase 5: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    print("[6/6] the segmentation CLI", flush=True)
+    launch_runs["CLI 336 px"], runs["CLI 336 px"] = cli_phase(card)
+    print(f"  phase 6: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # Launches of each kernel in the first run whose path takes it (K4:
     # the 768 px run, K8: the exact CRF run, K7: the SP run, K9: the

@@ -7,6 +7,7 @@ path reads. Defaults are the reference's (Run_seg.sh):
 
 - drop count 10/round        (reference script ``save_len = 10`` at :643)
 - CRF constants              (reference script :1036-1041)
+- GPT probability cutoff 70  (reference script :764-767)
 - blur scale 0.05            (reference script :1149)
 """
 
@@ -171,6 +172,7 @@ class PipelineConfig:
     data_type: str = "voc"  # voc | psc | ade20k | coco_object | coco_stuff
     batch_size: int = 35
     threshold: float = 0.15  # mask binarization (--threshold)
+    gpt_prob_cutoff: int = 70  # keep GPT classes with prob > this (:764-767)
     max_classes: int = 28  # static padding for ragged per-image class counts
     # Context datasets skip the synthesized background channel when >= this
     # many classes were proposed (reference script :372-379).
@@ -193,3 +195,14 @@ class PipelineConfig:
             batch_size=2,
             max_classes=4,
         )
+
+
+# Dataset category-count table (background channel included where the
+# reference includes it; see Calculate_mIoU.py:23-201).
+NUM_CLASSES = {
+    "voc": 21,
+    "psc": 60,
+    "ade20k": 151,
+    "coco_object": 91,
+    "coco_stuff": 183,
+}

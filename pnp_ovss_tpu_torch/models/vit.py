@@ -237,3 +237,25 @@ class VisionTransformer(nn.Module):
         if sp is not None:
             x = sp.all_gather_tokens(x)[:, :c.seq_len]
         return self.norm(x)
+
+
+def interpolate_pos_embed(pos_embed: torch.Tensor,
+                          target_num_patches: int) -> torch.Tensor:
+    """Resample grid position embeddings [1, 1 + g*g, D] to a new patch
+    count (vit.py:459-480 of the JAX package; reference base_model.py:86-127,
+    vit.py:435-465): the CLS entry is kept and the [g, g] grid is resized
+    bicubically in float32. ``F.interpolate``'s bicubic with
+    ``antialias=True`` takes the a = -0.5 Keys filter, as
+    ``jax.image.resize(method="bicubic")`` does (and antialiases when it
+    shrinks, as JAX does), so the two agree to float32 rounding;
+    ``antialias=False`` would take a = -0.75."""
+    _, n, dim = pos_embed.shape
+    orig_grid = int((n - 1) ** 0.5)
+    new_grid = int(target_num_patches ** 0.5)
+    if orig_grid == new_grid:
+        return pos_embed
+    grid = pos_embed[:, 1:].float().reshape(1, orig_grid, orig_grid, dim)
+    grid = F.interpolate(grid.permute(0, 3, 1, 2), size=(new_grid, new_grid),
+                         mode="bicubic", antialias=True, align_corners=False)
+    grid = grid.permute(0, 2, 3, 1).reshape(1, new_grid * new_grid, dim)
+    return torch.cat([pos_embed[:, :1], grid.to(pos_embed.dtype)], dim=1)

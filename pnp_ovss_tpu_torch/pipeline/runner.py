@@ -16,7 +16,9 @@ rule says so) are driven to -1e30 after the blur.
 
 Work is queued on the device without host synchronisation until
 ``PendingBatch.result()`` copies the labels back, so holding one pending
-batch while submitting the next double-buffers the pipeline.
+batch while submitting the next double-buffers the pipeline. With
+``result(materialize_labels=False)`` the labels stay on the device, and
+``make_hist_fn`` counts per-image confusion matrices there.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from pnp_ovss_tpu_torch import resolve_device
 from pnp_ovss_tpu_torch.attribution.gradcam import gradcam_from_embeds
 from pnp_ovss_tpu_torch.config import PipelineConfig
 from pnp_ovss_tpu_torch.data.transforms import CLIP_MEAN, CLIP_STD
+from pnp_ovss_tpu_torch.evalx.metrics import batch_hist_t
 from pnp_ovss_tpu_torch.models.blip_itm import BlipITM
 from pnp_ovss_tpu_torch.ops import crf as crf_mod
 from pnp_ovss_tpu_torch.ops.blur import blur_and_minmax
@@ -45,8 +48,10 @@ _DISABLED = -1e30
 
 @dataclasses.dataclass
 class BatchResult:
-    labels_r0: np.ndarray  # [B, Hb, Wb] channel indices (1-drop)
-    labels_agg: np.ndarray  # [B, Hb, Wb] channel indices (N-drop aggregate)
+    # [B, Hb, Wb] uint8 channel indices, host numpy; device tensors after
+    # ``result(materialize_labels=False)``.
+    labels_r0: np.ndarray  # 1-drop
+    labels_agg: np.ndarray  # N-drop aggregate
     num_classes: np.ndarray  # [B]
     bg_enable: np.ndarray  # [B] bool
     maps_r0: Optional[np.ndarray] = None  # [B, K, Hb, Wb] with return_maps
@@ -63,9 +68,12 @@ class PendingBatch:
     maps_r0_dev: Optional[torch.Tensor] = None
     maps_agg_dev: Optional[torch.Tensor] = None
 
-    def result(self) -> BatchResult:
-        """Copy the results to the host (waits for the device)."""
-        labels = self.labels_dev.cpu().numpy()
+    def result(self, *, materialize_labels: bool = True) -> BatchResult:
+        """Copy the results to the host (waits for the device).
+        ``materialize_labels=False`` keeps the labels on the device (the
+        CLI's ``--eval_at_bucket``, whose histograms are counted there)."""
+        labels = (self.labels_dev.cpu().numpy() if materialize_labels
+                  else self.labels_dev)
 
         def opt(x):
             return None if x is None else x.cpu().numpy()
@@ -240,6 +248,22 @@ class SegmentationRunner:
             bg_enable=bg_enable,
             maps_r0_dev=maps_r0 if return_maps else None,
             maps_agg_dev=maps_agg if return_maps else None)
+
+    def make_hist_fn(self, n_class: int):
+        """Per-image confusion matrices at bucket resolution, on the
+        labels' device: (labels [B, Hb, Wb] channel indices, tables
+        [B, >= C + 1] channel -> category id, gt [B, Hb, Wb]) -> [B,
+        n_class, n_class] int32 (``evalx.metrics.batch_hist_t``; out-of-range
+        GT is not counted)."""
+
+        def hist_fn(labels: torch.Tensor, tables: torch.Tensor,
+                    gt: torch.Tensor) -> torch.Tensor:
+            b = labels.shape[0]
+            pred = torch.gather(tables.long(), 1,
+                                labels.reshape(b, -1).long())
+            return batch_hist_t(gt, pred, n_class)
+
+        return hist_fn
 
     def finalize_image(self, labels_bucket: np.ndarray,
                        category_ids: Sequence[int],

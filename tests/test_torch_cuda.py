@@ -16,9 +16,13 @@ over j, bit-equal launches, empty inputs and the stalled ring's trap; the
 CRF's exact, Nystrom and general-loop branches on the card against the
 CPU; K7 at
 ragged chunks against K2's rows, K9 at odd S, and a two-rank
-sequence-parallel encode with both ranks on the one card (gloo).
+sequence-parallel encode with both ranks on the one card (gloo); the
+evaluation path on the card (``make_hist_fn`` over ragged batches against
+numpy, labels kept on the card by ``result(materialize_labels=False)``)
+and the tiny-width CLI on the card against the same run on the CPU.
 """
 
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -749,3 +753,111 @@ def test_two_rank_sp_encode_on_one_card(cuda, tmp_path):
         n = out["launches"]
         assert n["flash_mha_flat_xlen"] == cfg.num_layers
         assert n["flash_mha_flat_qkv"] == n["flash_mha_qkv_proj"] == 0
+
+
+def _tiny_runner(device):
+    """The tiny pipeline (capture layer 0 of 2) on ``device``."""
+    from pnp_ovss_tpu_torch.config import PipelineConfig
+    from pnp_ovss_tpu_torch.models.blip_itm import init_blip_itm
+    from pnp_ovss_tpu_torch.pipeline.runner import SegmentationRunner
+
+    cfg = PipelineConfig.tiny()
+    cfg = dataclasses.replace(
+        cfg, attribution=dataclasses.replace(cfg.attribution, layer=1,
+                                             head=1))
+    model = init_blip_itm(cfg.model, capture_layer=0, device=device)
+    return cfg, SegmentationRunner(cfg, model, device=device, bucket_size=32)
+
+
+@pytest.mark.parametrize("b,nb", [(5, 5), (6, 1)])
+def test_make_hist_fn_on_the_card_equals_numpy(cuda, b, nb):
+    """Per-image hists on the card for a batch whose last ``b - nb`` rows
+    are padding (tables all 0), against numpy ``fast_hist``."""
+    from pnp_ovss_tpu_torch.evalx.metrics import fast_hist
+
+    _, runner = _tiny_runner(cuda)
+    rng = np.random.RandomState(b)
+    labels = rng.randint(0, 6, (b, 40, 40)).astype(np.uint8)
+    tables = np.zeros((b, 7), np.int32)
+    tables[:nb, 1:6] = rng.randint(1, 21, (nb, 5))
+    gt = rng.randint(0, 21, (b, 40, 40)).astype(np.int32)
+    gt[rng.rand(b, 40, 40) < 0.1] = 255
+    got = runner.make_hist_fn(21)(
+        torch.as_tensor(labels, device=cuda),
+        torch.as_tensor(tables, device=cuda), torch.as_tensor(gt, device=cuda))
+    assert got.is_cuda and got.dtype == torch.int32
+    for i in range(b):
+        keep = gt[i] < 21
+        pred = tables[i][labels[i].astype(np.int64)]
+        want = fast_hist(gt[i][keep], pred[keep], 21)
+        np.testing.assert_array_equal(got[i].cpu().numpy(), want)
+
+
+def test_result_keeps_labels_on_the_card(cuda):
+    from pnp_ovss_tpu_torch.text.captions import build_caption_batch
+    from pnp_ovss_tpu_torch.text.wordpiece import WordPieceTokenizer
+
+    cfg, runner = _tiny_runner(cuda)
+    tok = WordPieceTokenizer.toy(["a", "picture", "of", "dog", "cat"])
+    cap = build_caption_batch([["dog", "cat"], ["cat"]], tok,
+                              max_text_len=16, max_classes=cfg.max_classes)
+    rng = np.random.RandomState(0)
+    images = rng.randint(0, 256, (2, 48, 48, 3)).astype(np.uint8)
+    rgb = rng.randint(0, 256, (2, 32, 32, 3)).astype(np.float32)
+    pending = runner.submit_batch(images, cap, rgb)
+    kept = pending.result(materialize_labels=False)
+    assert kept.labels_r0.is_cuda and kept.labels_agg.is_cuda
+    assert kept.labels_agg.shape == (2, 32, 32)
+    host = pending.result()
+    np.testing.assert_array_equal(host.labels_agg,
+                                  kept.labels_agg.cpu().numpy())
+
+
+def test_tiny_cli_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypatch):
+    """The port's CLI at the tiny widths on a fake VOC directory (five
+    VOC-sized images, batch 4: a ragged tail of one) from one tiny
+    LAVIS-layout checkpoint, ``--device cuda`` against ``--device cpu``:
+    per image, hists within 1% of the image's pixels in L1 (the CPU
+    test's bar against the JAX CLI)."""
+    import chip_smoke
+    from pnp_ovss_tpu_torch.cli import segment
+    from pnp_ovss_tpu_torch.config import ModelConfig
+
+    real = segment.build_config
+
+    def tiny(args):
+        cfg = real(args)
+        model = ModelConfig.tiny()
+        model = dataclasses.replace(
+            model, vit=dataclasses.replace(model.vit,
+                                           image_size=args.img_size),
+            max_text_len=args.max_txt_len)
+        return dataclasses.replace(
+            cfg, model=model,
+            drop=dataclasses.replace(cfg.drop, patches_per_round=2))
+
+    monkeypatch.setattr(segment, "build_config", tiny)
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    data = str(tmp_path / "voc")
+    sizes = chip_smoke.write_fake_voc(data, 5)
+    ckpt = tmp_path / "model.pth"
+    torch.save({k: torch.from_numpy(np.asarray(v)) for k, v in
+                chip_smoke.lavis_state_dict(ModelConfig.tiny(), 3).items()},
+               ckpt)
+    args = ["--data_type", "voc", "--home_dir", data, "--checkpoint",
+            str(ckpt), "--img_size", "48", "--batch_size", "4",
+            "--drop_iter", "2", "--bucket_size", "32", "--max_txt_len", "32",
+            "--max_att_block_num", "1", "--prune_att_head", "1",
+            "--max_classes", "4"]
+    for dev in ("cuda", "cpu"):
+        segment.main(args + ["--save_path", str(tmp_path / dev),
+                             "--device", dev])
+    card = chip_smoke.read_hists(str(tmp_path / "cuda"))
+    cpu = chip_smoke.read_hists(str(tmp_path / "cpu"))
+    for sub in chip_smoke.HIST_DIRS:
+        assert sorted(card[sub]) == sorted(cpu[sub]) == sorted(sizes)
+        for img_id, h in card[sub].items():
+            pixels = sizes[img_id][0] * sizes[img_id][1]
+            assert h.sum() == pixels
+            l1 = np.abs(h - cpu[sub][img_id]).sum()
+            assert l1 <= 0.01 * pixels, (sub, img_id, l1)

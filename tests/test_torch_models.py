@@ -154,6 +154,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted(PKG.rglob("*.py"))
     assert len(files) > 10
     assert PKG / "parallel" / "sequence.py" in files
+    assert PKG / "cli" / "segment.py" in files
     repo = PKG.parent
     card_scripts = [repo / "chip_smoke.py",
                     repo / "scripts" / "profile_torch_port.py",
