@@ -7,7 +7,9 @@ Phases, each of which exits non-zero on failure:
 
 1. card: the GPU's name and power limit (nvidia-smi);
 2. build: every CUDA kernel of the port from ``pnp_ovss_tpu_torch/csrc``,
-   one nvcc per source, all started together;
+   one nvcc per source, all started together, and the host parity path's
+   lattice CRF (``native/densecrf/permutohedral.cc``, g++, into
+   ``build/densecrf/``);
 3. kernels: each kernel at the main paths' shapes against its plain
    PyTorch version on the card, within the tolerance stated beside it,
    then timed with CUDA events: the kernel, its plain version, where one
@@ -55,7 +57,23 @@ Phases, each of which exits non-zero on failure:
    device hist equal to numpy's, the run totals to the files' sums), and
    ``--checkpoint`` twice on a full-width LAVIS-layout state dict drawn
    from a seed at 384 px (every parameter equal to the dict's, the
-   position embeddings resampled; the second run reads the cache).
+   position embeddings resampled; the second run reads the cache);
+7. the host parity path, the synthetic postprocess gate and the search,
+   on the same synthetic VOC set: the CLI with ``--postprocess_backend
+   host`` (two batches of 4: hist files complete, device launches the
+   336 px fused run's at that batch, every parity label map equal to
+   ``finalize_image_parity`` re-run on the main thread; beside it the
+   device CLI's img/s on the same flags); the gate
+   (``scripts/synthetic_postprocess_gate_torch.py``) at seed 0 x 48
+   scenes for the strided s=4 CRF at bucket 192 and the exact CRF, each
+   mean mIoU delta against the host anchor at least -0.3 points; and
+   ``cli.search --scorer itc --n_iter 4`` at full width over 8 images
+   with the 12-layer GradCAM ensemble and the ITM head scaled so that the
+   maps reach the search's thresholds (a score above 0; layer 8's maps
+   equal to the single-layer capture's within 1e-6 of the largest; one
+   scorer call's ITC similarities on the card within 0.01 of the CPU's;
+   K1 = K2 = K3 = 24 x the image encodes; seconds an image for the
+   ensemble and for each evaluation).
 
 The last four lines of output are the runs' img/s as JSON, one JSON
 object with every kernel's numbers, the card's name and power limit, and
@@ -989,7 +1007,7 @@ def narrow_run(cfg, device: str, vit_fused: bool = True, sp_group=None):
     from pnp_ovss_tpu_torch.pipeline.runner import SegmentationRunner
 
     images, cap, rgb, gt = synthetic_batch(cfg, 4, 64, seed=1)
-    model = init_blip_itm(cfg.model, capture_layer=0, seed=1,
+    model = init_blip_itm(cfg.model, capture_layers=(0,), seed=1,
                           device="cuda", vit_fused=vit_fused).to(device)
     runner = SegmentationRunner(
         cfg, model, device=device, bucket_size=64,
@@ -1058,8 +1076,8 @@ def pipeline_setup(seed: int = 0, *, image_size: int = 336,
     cfg = dataclasses.replace(
         cfg, postprocess=dataclasses.replace(cfg.postprocess, **(post or {})))
     model = init_blip_itm(cfg.model,
-                          capture_layer=cfg.attribution.layer - 1, seed=seed,
-                          device="cuda", vit_fused=vit_fused)
+                          capture_layers=(cfg.attribution.layer - 1,),
+                          seed=seed, device="cuda", vit_fused=vit_fused)
     runner = SegmentationRunner(
         cfg, model, device="cuda", bucket_size=BUCKET,
         encode_parallel=None if sp_group is None else "sp",
@@ -1201,7 +1219,8 @@ def sp_encode_768(sp) -> dict:
 
     torch.cuda.empty_cache()
     cfg = full_config(LEG_768[0])
-    model = init_blip_itm(cfg.model, capture_layer=cfg.attribution.layer - 1,
+    model = init_blip_itm(cfg.model,
+                          capture_layers=(cfg.attribution.layer - 1,),
                           device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(4)
     size = cfg.model.vit.image_size
@@ -1351,9 +1370,10 @@ def lavis_state_dict(cfg, seed: int, grid=None) -> dict:
     ``ModelConfig``) widths, drawn from ``seed`` with numpy: matrices
     N(0, 1/fan_in), norms 1 + N(0, 0.1^2), biases and embeddings
     N(0, 0.02^2); the ViT position grid ``grid`` x ``grid`` (default the
-    config's). It also carries keys of the retrieval checkpoint that the
-    loader must drop: momentum copies, ITC projections and queues, the
-    temperature, BERT's ``position_ids`` and token-type table."""
+    config's), the ITC projections at ``cfg.embed_dim``. It also carries
+    keys of the retrieval checkpoint that the loader must drop: momentum
+    copies, ITC queues, the temperature, BERT's ``position_ids`` and
+    token-type table."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -1408,15 +1428,14 @@ def lavis_state_dict(cfg, seed: int, grid=None) -> dict:
         lin(b + ".output.dense", c.intermediate_size, h)
         ln(b + ".output.LayerNorm", h)
     lin("itm_head", h, 2)
-    # Dropped by the loader (ITC dim 256, blip_itm_large.yaml:23).
-    lin("vision_proj", d, 256)
-    lin("text_proj", h, 256)
+    lin("vision_proj", d, cfg.embed_dim)  # 256, blip_itm_large.yaml:23
+    lin("text_proj", h, cfg.embed_dim)
     sd["visual_encoder_m.cls_token"] = sd["visual_encoder.cls_token"].copy()
     sd["text_encoder_m.embeddings.LayerNorm.weight"] = \
         sd["text_encoder.embeddings.LayerNorm.weight"].copy()
-    lin("vision_proj_m", d, 256)
+    lin("vision_proj_m", d, cfg.embed_dim)
     for name in ("image_queue", "text_queue"):
-        sd[name] = normal((256, 57), 1.0)
+        sd[name] = normal((cfg.embed_dim, 57), 1.0)
     sd["idx_queue"] = np.full((1, 57), -100, np.int64)
     sd["queue_ptr"] = np.zeros((1,), np.int64)
     sd["temp"] = np.asarray(0.07, np.float32)
@@ -1495,10 +1514,10 @@ def read_hists(out: str, suffix: str = "") -> dict:
     return hists
 
 
-def cli_run(args) -> tuple:
-    """``cli.segment.main(args)`` on the card with the launch counts set
-    to 0 just before and read just after. Returns (its summary, the
-    counts, wall seconds)."""
+def cli_run(args, entry=None) -> tuple:
+    """``entry(args)`` (default ``cli.segment.main``) on the card with the
+    launch counts set to 0 just before and read just after. Returns (its
+    summary, the counts, wall seconds)."""
     import torch
 
     from pnp_ovss_tpu_torch.cli import segment
@@ -1507,7 +1526,7 @@ def cli_run(args) -> tuple:
     torch.cuda.synchronize()
     _build.reset_launch_counts()
     t0 = time.perf_counter()
-    summary = segment.main(args)
+    summary = (entry or segment.main)(args)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = dict(_build.LAUNCHES)
@@ -1692,7 +1711,8 @@ def cli_checkpoint(tmp: str, data: str) -> None:
             outs.append(read_hists(out))
             print(f"  run D{run}: {dt:.1f} s in main, conversions so far "
                   f"{len(converted)}", flush=True)
-        store = cache.cache_path(path, cfg.model, cfg.attribution.layer - 1)
+        store = cache.cache_path(path, cfg.model,
+                                 (cfg.attribution.layer - 1,))
     finally:
         convert.load_torch_checkpoint = real
         if home is None:
@@ -1751,6 +1771,300 @@ def cli_phase(card: str) -> tuple:
              "included")
 
 
+# Phase 7: the host parity CLI, the synthetic postprocess gate, the search.
+PARITY_BATCH = 4  # two batches; each lattice CRF is re-run on the main
+# thread, ~4 s a CRF at VOC size on one core
+GATE_CONFIGS = ("strided_s4_b192", "exact_s1_b192")
+GATE_SCENES = 48
+SEARCH_IMAGES = 8
+# Random weights give GradCAM maps far below the search's thresholds
+# (0.05-0.45), so every mask is empty and every reward 0. GradCAM is
+# linear in the ITM head; a power of two scales every map exactly.
+SEARCH_ITM_SCALE = 2.0 ** 17
+TOL_SEARCH_MAPS = 1e-6  # one computation through two captures
+TOL_SEARCH_ITC = 0.01  # cosine similarities, bf16 towers, card vs CPU
+
+
+def load_script(name: str):
+    """A script of ``scripts/`` as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def parity_cli(tmp: str, data: str, sizes: dict, card: str) -> tuple:
+    """Run E: ``--postprocess_backend host --batch_size 4 --limit 8`` (two
+    batches). The hist files are complete and sum to their pixels; the
+    device launches are the 336 px fused run's per batch at batch 4 (the
+    device postprocess still runs, as in the JAX package); every parity
+    label map, computed off the main thread from host numpy, equals
+    ``finalize_image_parity`` re-run on the main thread from the same grid
+    maps. Then run F: the device CLI with the same flags, for its img/s.
+    Returns (run E's launches, its row of the pipeline line)."""
+    import threading
+
+    import numpy as np
+
+    from pnp_ovss_tpu_torch.pipeline.runner import SegmentationRunner
+
+    b = PARITY_BATCH
+    cfg = dataclasses.replace(full_config(336), batch_size=b)
+    flags = ["--data_type", "voc", "--home_dir", data, "--batch_size",
+             str(b), "--limit", str(2 * b), "--no_resume"]
+    calls = []
+    real = SegmentationRunner.finalize_image_parity
+
+    def spy(self, *args, **kw):
+        out = real(self, *args, **kw)
+        calls.append((self, args, kw, out, threading.current_thread()))
+        return out
+
+    out = os.path.join(tmp, "out_e")
+    SegmentationRunner.finalize_image_parity = spy
+    try:
+        summary, counts, dt = cli_run(flags + [
+            "--save_path", out, "--postprocess_backend", "host"])
+    finally:
+        SegmentationRunner.finalize_image_parity = real
+    want = {k: 2 * v for k, v in expected_launches(cfg, _VIT_336).items()}
+    if counts != want:
+        raise SystemExit(f"FAIL: parity CLI launched {counts}, want {want}")
+    ids = list(sizes)[: 2 * b]
+    for sub, per_image in read_hists(out).items():
+        if sorted(per_image) != sorted(ids) or any(
+                h.sum() != np.prod(sizes[i]) for i, h in per_image.items()):
+            raise SystemExit(f"FAIL: parity CLI {sub}: files incomplete or "
+                             "not summing to the images' pixels")
+    main = threading.main_thread()
+    if len(calls) != 4 * b or any(t is main or not isinstance(a[0],
+                                                              np.ndarray)
+                                  for _, a, _, _, t in calls):
+        raise SystemExit(f"FAIL: {len(calls)} parity calls, want {4 * b}, "
+                         "all off the main thread on host numpy")
+    t0 = time.perf_counter()
+    for self, args, kw, got, _ in calls:
+        if not np.array_equal(real(self, *args, **kw), got):
+            raise SystemExit("FAIL: a parity label map differs from its "
+                             "re-run on the main thread")
+    rerun_s = (time.perf_counter() - t0) / len(calls)
+    img_s = 2 * b / summary["batch_done_s"][1]
+    print(f"  run E (--postprocess_backend host, 2 batches of {b}): "
+          f"{dt:.1f} s in main, files complete, launches {counts} = 2 x "
+          f"the 336 px fused run's at batch {b}; {len(calls)} parity label "
+          "maps (worker threads, host numpy) equal their re-runs on the "
+          f"main thread ({rerun_s:.3f} s a lattice CRF there); parity CLI "
+          f"{img_s:.3f} img/s over the two batches on {card}; host "
+          f"finalize {summary['finalize_s'][0]:.3f} / "
+          f"{summary['finalize_s'][1]:.3f} s a batch", flush=True)
+    summary_f, _, _ = cli_run(flags + ["--save_path",
+                                       os.path.join(tmp, "out_f")])
+    device_img_s = 2 * b / summary_f["batch_done_s"][1]
+    print(f"  run F (the device CLI, same flags): {device_img_s:.3f} img/s "
+          f"over the two batches; parity / device "
+          f"{img_s / device_img_s:.3f}", flush=True)
+    return want, dict(img_per_s=img_s, images=2 * b, batch=b,
+                      device_cli_img_per_s=device_img_s,
+                      finalize_s=summary["finalize_s"][:2],
+                      lattice_crf_s=rerun_s)
+
+
+def gate_check(card: str) -> tuple:
+    """The synthetic postprocess gate at seed 0 x 48 scenes for the
+    strided s = 4 default at bucket 192 and the exact CRF: each mean delta
+    against the host anchor must be at least -0.3 mIoU points (the full
+    5-seed run is ``scripts/synthetic_postprocess_gate_torch.py``), and
+    the CRF launches are one image's per scene and config. Returns (its
+    launches, its row of the pipeline line)."""
+    import torch
+
+    from pnp_ovss_tpu_torch.ops import _build
+
+    gate = load_script("synthetic_postprocess_gate_torch")
+    want = dict.fromkeys(_build.LAUNCHES, 0)
+    for tag, mode, sub, bucket in gate.DEVICE_GRID:
+        if tag in GATE_CONFIGS:
+            base = full_config(336)
+            cfg = dataclasses.replace(
+                base, batch_size=GATE_SCENES,
+                postprocess=dataclasses.replace(
+                    base.postprocess, bilateral_mode=mode,
+                    bilateral_subsample=sub))
+            for k, v in expected_launches(cfg, (), bucket).items():
+                want[k] += v
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    payload = gate.run_gate(scenes=GATE_SCENES, seeds=(0,),
+                            configs=set(GATE_CONFIGS), device="cuda",
+                            log=lambda m: print("  " + m, flush=True))
+    wall = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    if counts != want:
+        raise SystemExit(f"FAIL: gate launched {counts}, want {want}")
+    deltas = {tag: payload["stats"][tag]["mean_pts"] for tag in GATE_CONFIGS}
+    print(f"  gate, seed 0 x {GATE_SCENES} scenes: mean deltas {deltas} "
+          f"mIoU points (bar -{payload['budget_pts']}), {wall:.1f} s on "
+          f"{card} ({payload['anchor_threads']} anchor threads); launches "
+          f"{counts}", flush=True)
+    if payload["failures_mean"]:
+        raise SystemExit(f"FAIL: gate {payload['failures_mean']} below "
+                         f"-{payload['budget_pts']} points")
+    return counts, dict(deltas_pts=deltas, wall_s=wall,
+                        seconds=payload["seconds"])
+
+
+def search_check(tmp: str, data: str, card: str) -> tuple:
+    """Run G: ``cli.search --scorer itc --n_iter 4 --limit 8`` at full
+    width with the 12-layer ensemble (random weights from seed 0, the ITM
+    head scaled by ``SEARCH_ITM_SCALE``). Checks:
+
+    - the search scores above 0 (some positive mask beats the black one);
+    - each image's ensemble GradCAM at layer 8 equals, map for map,
+      ``gradcam_from_embeds`` of a model capturing layer 8 alone on the
+      same weights (within ``TOL_SEARCH_MAPS`` of the largest value);
+    - the ITC similarities of one scorer call (its first positive images
+      and first negative one) on the card within ``TOL_SEARCH_ITC`` of the
+      same model's on the CPU;
+    - K1 = K2 = K3 = 24 x the ``encode_image`` calls.
+
+    Returns (its launches, its row of the pipeline line)."""
+    import torch
+
+    from pnp_ovss_tpu_torch.attribution.gradcam import gradcam_from_embeds
+    from pnp_ovss_tpu_torch.cli import search
+    from pnp_ovss_tpu_torch.models.blip_itm import BlipITM, init_blip_itm
+    from pnp_ovss_tpu_torch.ops import _build
+
+    encodes, recorded, scored, models = [0], [], [], []
+    real_encode, real_itc = BlipITM.encode_image, BlipITM.itc
+    real_fn, real_load = search.ensemble_gradcam_fn, search.load_model
+
+    def load(args, cfg, capture, device):
+        model = real_load(args, cfg, capture, device)
+        model.itm_head.weight.mul_(SEARCH_ITM_SCALE)
+        models.append(model)
+        return model
+
+    def encode(self, images):
+        encodes[0] += 1
+        return real_encode(self, images)
+
+    def itc(self, images, ids, mask):
+        sims = real_itc(self, images, ids, mask)
+        scored.append((images.cpu(), ids.cpu(), mask.cpu(), sims.cpu()))
+        return sims
+
+    def ensemble(model):
+        fn = real_fn(model)
+
+        def recording(images, ids, mask):
+            gc, logits = fn(images, ids, mask)
+            recorded.append((images, ids, mask, gc[7].clone()))
+            return gc, logits
+
+        return recording
+
+    patched = (encode, itc, ensemble, load)
+    (BlipITM.encode_image, BlipITM.itc, search.ensemble_gradcam_fn,
+     search.load_model) = patched
+    try:
+        summary, counts, dt = cli_run(
+            ["--data_type", "voc", "--home_dir", data, "--save_path",
+             os.path.join(tmp, "out_g"), "--scorer", "itc", "--n_iter", "4",
+             "--limit", str(SEARCH_IMAGES)], entry=search.main)
+    finally:
+        (BlipITM.encode_image, BlipITM.itc, search.ensemble_gradcam_fn,
+         search.load_model) = real_encode, real_itc, real_fn, real_load
+    n = encodes[0]
+    want = dict.fromkeys(_build.LAUNCHES, 0)
+    want.update(dict.fromkeys(_VIT_336, 24 * n))
+    if counts != want or len(recorded) != SEARCH_IMAGES or \
+            n < 2 * SEARCH_IMAGES:
+        raise SystemExit(f"FAIL: search launched {counts} over {n} encodes "
+                         f"({len(recorded)} ensembles), want {want}")
+    cfg = full_config(336).model
+    single = init_blip_itm(cfg, capture_layers=(7,), seed=0, device="cuda")
+    single.itm_head.weight.mul_(SEARCH_ITM_SCALE)
+    worst = 0.0
+    for images, ids, mask, gc8 in recorded:
+        one, _ = gradcam_from_embeds(single, single.encode_image(images),
+                                     ids, mask, grid=cfg.vit.grid)
+        if not (torch.isfinite(gc8).all() and one.abs().max() > 0):
+            raise SystemExit("FAIL: search GradCAM not finite or all zero")
+        worst = max(worst, float((gc8 - one[0]).abs().max()
+                                 / one.abs().max()))
+    del single
+    # The scorer call whose images differ most; its first positive images
+    # and its first negative (black) one, on the CPU.
+    images, ids, mask, sims = max(
+        scored, key=lambda c: float((c[3] - c[3][-1]).abs().max()))
+    k = ids.shape[0]
+    rows = list(range(min(k, 2))) + [k]
+    model = models[0].cpu()
+    t0 = time.perf_counter()
+    cpu = real_itc(model, images[rows], ids, mask)
+    cpu_s = time.perf_counter() - t0
+    itc_err = float((cpu - sims[rows]).abs().max())
+    spread = float((sims[rows] - sims[k]).abs().max())
+    del model, models[:]
+    torch.cuda.empty_cache()
+    ens_s = summary["ensemble_s"]
+    eval_s = [t / SEARCH_IMAGES for t in summary["evaluation_s"]]
+    print(f"  run G (cli.search --scorer itc, 12-layer ensemble, ITM head "
+          f"x{SEARCH_ITM_SCALE:g}, {SEARCH_IMAGES} images, 4 steps): "
+          f"{dt:.1f} s in main, best {summary['best']} score "
+          f"{summary['score']:.4f}, history "
+          f"{[round(sc, 4) for _, sc in summary['history']]}; layer-8 "
+          f"GradCAM maps vs the single-layer capture max diff {worst:.4g} "
+          f"of the largest (bar {TOL_SEARCH_MAPS:g}); ITC similarities of "
+          f"{len(rows)} images x {k} texts, card vs CPU max diff "
+          f"{itc_err:.4g} (bar {TOL_SEARCH_ITC:g}; positive vs negative "
+          f"spread {spread:.4g}; CPU {cpu_s:.1f} s); {n} encodes, launches "
+          f"{counts}; ensemble {[round(t, 4) for t in ens_s]} s an image, "
+          f"{len(eval_s)} (layer, head, min_att) evaluations "
+          f"{[round(t, 4) for t in eval_s]} s an image, on {card}",
+          flush=True)
+    if not summary["score"] > 0:
+        raise SystemExit("FAIL: every search reward read 0")
+    if worst > TOL_SEARCH_MAPS:
+        raise SystemExit("FAIL: the ensemble's layer 8 differs from the "
+                         "single-layer GradCAM")
+    if itc_err > TOL_SEARCH_ITC:
+        raise SystemExit("FAIL: the ITC scorer on the card differs from "
+                         "the CPU")
+    return counts, dict(ensemble_s_per_image=ens_s,
+                        evaluation_s_per_image=eval_s, encodes=n,
+                        score=summary["score"], layer8_rel_diff=worst,
+                        itc_err=itc_err)
+
+
+def parity_and_search_phase(card: str) -> tuple:
+    """Phase 7: runs E-G on phase 6's synthetic VOC set (the same seed)
+    and the gate, in a temporary directory deleted at the end. Returns
+    ({run: launches}, {run: row of the pipeline line})."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="pnp_parity_")
+    try:
+        data = os.path.join(tmp, "voc")
+        sizes = write_fake_voc(data, CLI_IMAGES)
+        launches, rows = {}, {}
+        launches["parity CLI 336 px"], rows["parity CLI 336 px"] = \
+            parity_cli(tmp, data, sizes, card)
+        launches["gate seed 0"], rows["gate seed 0"] = gate_check(card)
+        launches["search 336 px ITC"], rows["search 336 px ITC"] = \
+            search_check(tmp, data, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches, rows
+
+
 def main() -> int:
     import torch
 
@@ -1766,12 +2080,18 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     card = card_line()
-    print(f"[1/6] card: {card}", flush=True)
+    print(f"[1/7] card: {card}", flush=True)
 
     t0 = time.perf_counter()
     paths = _build.build_all()
-    print(f"[2/6] built {len(paths)} kernel libraries in "
+    print(f"[2/7] built {len(paths)} kernel libraries in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    from pnp_ovss_tpu_torch.ops import crf_host
+
+    t0 = time.perf_counter()
+    crf_host._lib()  # raises with the compiler's output if g++ fails
+    print(f"  the host parity path's lattice CRF ({crf_host.library_path()}"
+          f") built in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "arning")):
@@ -1779,7 +2099,7 @@ def main() -> int:
 
     cfg, cfg768 = full_config(336), full_config(LEG_768[0])
     t0 = time.perf_counter()
-    print("[3/6] kernels vs plain at the main paths' shapes", flush=True)
+    print("[3/7] kernels vs plain at the main paths' shapes", flush=True)
     rows = kernels_vs_plain(cfg)
     rows.update(fused_vit_kernels(cfg, cfg768))
     rows["gaussian_kernel_matmul"] = kernel_matmul_check(cfg)
@@ -1792,7 +2112,7 @@ def main() -> int:
     print(f"  phase 3: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
-    print("[4/6] CRF branches and narrow pipelines, card vs CPU", flush=True)
+    print("[4/7] CRF branches and narrow pipelines, card vs CPU", flush=True)
     for args in CRF_BRANCHES:
         crf_branch_check(*args)
     for args in NARROW_RUNS:
@@ -1803,7 +2123,7 @@ def main() -> int:
     print(f"  phase 4: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
-    print("[5/6] full-width pipelines", flush=True)
+    print("[5/7] full-width pipelines", flush=True)
     # Launches of each run, in the order the kernels line reads them.
     runs, summaries, launch_runs = {}, {}, {}
     for name, size, fused, vit_kernels, post in FULL_RUNS:
@@ -1828,9 +2148,17 @@ def main() -> int:
     print(f"  phase 5: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
-    print("[6/6] the segmentation CLI", flush=True)
+    print("[6/7] the segmentation CLI", flush=True)
     launch_runs["CLI 336 px"], runs["CLI 336 px"] = cli_phase(card)
     print(f"  phase 6: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    print("[7/7] the parity CLI, the postprocess gate, the search",
+          flush=True)
+    launches7, rows7 = parity_and_search_phase(card)
+    launch_runs.update(launches7)
+    runs.update(rows7)
+    print(f"  phase 7: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # Launches of each kernel in the first run whose path takes it (K4:
     # the 768 px run, K8: the exact CRF run, K7: the SP run, K9: the

@@ -17,7 +17,12 @@ the JAX CLI's:
 The batch loop is double buffered: batch N+1 is submitted to the card
 before batch N's labels are read, all device work runs on the main thread,
 and the host finalize (resize, remap, histogram, files) of batch N runs on
-one worker thread on host numpy only. ``--device cuda`` (the default)
+one worker thread on host numpy only. ``--postprocess_backend host`` (the
+parity path) adds the grid-resolution maps to what the main thread copies
+down, and the worker runs the reference's per-image postprocess at GT
+resolution on them (``SegmentationRunner.finalize_image_parity``: numpy and
+the native lattice CRF, spread over the host's cores; no device work).
+``--device cuda`` (the default)
 raises without a card; nothing falls back to the CPU. Flags of features the
 port does not have yet raise ``SystemExit`` and name their ROADMAP item.
 """
@@ -109,7 +114,10 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--postprocess_backend", default="device",
                    choices=["device", "host"],
                    help="device: batched blur + CRF at bucket resolution "
-                        "on the card. host: not ported (ROADMAP A2)")
+                        "on the card. host: the reference's per-image "
+                        "postprocess at exact GT resolution (one bilinear "
+                        "resize of the grid maps, blur, the native lattice "
+                        "DenseCRF) on the host; slower, parity semantics")
     p.add_argument("--eval_at_bucket", action="store_true",
                    help="compute confusion hists on the device at the "
                         "bucket resolution (nearest-resized GT) instead of "
@@ -136,9 +144,6 @@ def get_args_parser() -> argparse.ArgumentParser:
 
 def reject_unported(args) -> None:
     """Raise ``SystemExit`` for a flag whose feature the port lacks."""
-    if args.postprocess_backend == "host":
-        raise SystemExit("--postprocess_backend host (the host parity "
-                         "postprocess) is not ported yet (ROADMAP A2)")
     unported = [flag for flag, on in (
         ("--distributed", args.distributed), ("--mesh", args.mesh),
         ("--tensor_parallel", args.tensor_parallel > 1),
@@ -226,6 +231,7 @@ def build_config(args) -> "PipelineConfig":
         post_kw["bilateral_subsample"] = args.crf_subsample
     if args.crf_xy_bucket_pixels:
         post_kw["crf_xy_gt_scale"] = False
+    post_kw["backend"] = args.postprocess_backend
     return PipelineConfig(
         model=model,
         attribution=AttributionConfig(
@@ -290,12 +296,12 @@ def main(argv=None):
     if args.checkpoint:
         from pnp_ovss_tpu_torch.models.cache import load_params_cached
 
-        model = load_params_cached(args.checkpoint, cfg.model, layer0,
+        model = load_params_cached(args.checkpoint, cfg.model, (layer0,),
                                    device=device, vit_fused=vit_fused)
     else:
         log("WARNING: no --checkpoint given; RANDOM weights "
             "(throughput/smoke runs only)")
-        model = init_blip_itm(cfg.model, capture_layer=layer0, seed=0,
+        model = init_blip_itm(cfg.model, capture_layers=(layer0,), seed=0,
                               device=device, vit_fused=vit_fused)
     runner = SegmentationRunner(cfg, model, device=device,
                                 bucket_size=args.bucket_size)
@@ -354,10 +360,11 @@ def main(argv=None):
 
     logger = MetricLogger()
     bs = cfg.batch_size
+    parity = cfg.postprocess.backend == "host"
     viz_set = set(args.viz_ids.split(",")) if args.viz_ids else set()
     loader = PrefetchLoader(
         records, batch_size=bs, img_size=cfg.img_size, bucket=runner.bucket,
-        keep_raw=bool(viz_set), gt_at_bucket=args.eval_at_bucket,
+        keep_raw=parity or bool(viz_set), gt_at_bucket=args.eval_at_bucket,
     )
     hist_fn = runner.make_hist_fn(n_class) if args.eval_at_bucket else None
 
@@ -419,7 +426,24 @@ def main(argv=None):
     batch_done_s, finalize_s = [], []
     t_loop = time.perf_counter()
 
-    def finalize_batch(batch, res, class_idx_lists, hists_np=None):
+    def parity_preds(batch, res, class_idx_lists, class_valid):
+        """{(i, variant): GT-resolution category labels} of the parity
+        path. The images' lattice CRFs are independent and release the
+        GIL, so they spread over a thread pool; none touches the card."""
+        def one(job):
+            i, variant = job
+            return runner.finalize_image_parity(
+                res.grid_r0[i] if variant == "r0" else res.grid_agg[i],
+                bool(res.bg_enable[i]), class_valid[i],
+                meta.category_ids[class_idx_lists[i]], batch.raw_images[i],
+                batch.gts[i].shape[:2], rescale=(variant == "r0"))
+
+        jobs = [(i, v) for i in range(len(batch.records))
+                for v in ("r0", "agg")]
+        return dict(zip(jobs, parity_pool.map(one, jobs)))
+
+    def finalize_batch(batch, res, class_idx_lists, class_valid,
+                       hists_np=None):
         """Host resize/remap/hist/file-IO for one batch (worker thread).
         ``res`` holds host numpy only (``bucket_hists`` did the device
         work on the main thread)."""
@@ -436,6 +460,8 @@ def main(argv=None):
             finalize_s.append(time.perf_counter() - t0)
             batch_done_s.append(time.perf_counter() - t_loop)
             return
+        preds = (parity_preds(batch, res, class_idx_lists, class_valid)
+                 if parity else {})
         for i, rec in enumerate(batch.records):
             cat_ids = meta.category_ids[class_idx_lists[i]]
             gt = batch.gts[i]
@@ -458,11 +484,16 @@ def main(argv=None):
                         d, f"img_{rec.img_id}.npy"), vec)
             for variant, hist_dir in (("r0", hist_dir_r0),
                                       ("agg", hist_dir_agg)):
-                labels_b = (res.labels_r0 if variant == "r0"
-                            else res.labels_agg)
-                pred = runner.finalize_image(
-                    labels_b[i], cat_ids, gt.shape[:2]
-                )
+                if parity:
+                    # Grid maps resized once to GT inside
+                    # finalize_image_parity (reference :358-360).
+                    pred = preds[i, variant]
+                else:
+                    labels_b = (res.labels_r0 if variant == "r0"
+                                else res.labels_agg)
+                    pred = runner.finalize_image(
+                        labels_b[i], cat_ids, gt.shape[:2]
+                    )
                 h = fast_hist(gt.flatten(), pred.flatten(), n_class)
                 np.save(hist_path(hist_dir, rec.img_id), h)
                 totals[variant] += h
@@ -473,13 +504,16 @@ def main(argv=None):
     # before batch N's labels are read, so the device queue never drains;
     # the host finalize overlaps in a worker thread. (The reference's loop
     # is synchronous per batch, script :213-257.)
-    in_flight = None  # (batch, PendingBatch, class_idx_lists, t_sub)
+    # (batch, PendingBatch, class_idx_lists, class_valid, t_sub)
+    in_flight = None
     fin_future = None
-    with cf.ThreadPoolExecutor(1) as finalize_pool:
+    # The parity pool's threads start only when the parity path uses them.
+    with cf.ThreadPoolExecutor(1) as finalize_pool, \
+            cf.ThreadPoolExecutor(os.cpu_count() or 1) as parity_pool:
 
         def collect(entry):
             nonlocal fin_future
-            b0, pb0, cls0, t_sub = entry
+            b0, pb0, cls0, valid0, t_sub = entry
             t0 = time.perf_counter()
             res0 = pb0.result(
                 materialize_labels=not args.eval_at_bucket or bool(viz_set)
@@ -494,7 +528,7 @@ def main(argv=None):
             if fin_future is not None:
                 fin_future.result()  # surface worker exceptions, keep order
             fin_future = finalize_pool.submit(
-                finalize_batch, b0, res0, cls0, hists_np
+                finalize_batch, b0, res0, cls0, valid0, hists_np
             )
             logger.update(
                 device_s=t_dev,
@@ -545,13 +579,15 @@ def main(argv=None):
             pending_batch = runner.submit_batch(
                 images_np, cap, rgbs_np,
                 return_maps=bool(viz_set),
+                return_grid_maps=parity,
                 gt_sizes=gt_sizes,
             )
             logger.update(host_s=t_sub - t0)
 
             if in_flight is not None:
                 collect(in_flight)
-            in_flight = (batch, pending_batch, class_idx_lists, t_sub)
+            in_flight = (batch, pending_batch, class_idx_lists,
+                         cap.class_valid, t_sub)
         if in_flight is not None:
             collect(in_flight)
         if fin_future is not None:

@@ -76,6 +76,7 @@ class ModelConfig:
     vit: ViTConfig = dataclasses.field(default_factory=ViTConfig)
     bert: BertConfig = dataclasses.field(default_factory=BertConfig)
     max_text_len: int = 128
+    embed_dim: int = 256  # ITC projection dim (blip_itm_large.yaml:23)
 
     @classmethod
     def tiny(cls) -> "ModelConfig":
@@ -101,6 +102,7 @@ class ModelConfig:
                 dtype="float32",
             ),
             max_text_len=16,
+            embed_dim=16,
         )
 
 
@@ -148,6 +150,10 @@ class PostprocessConfig:
     mode: str = "blur+crf"  # "", "blur", "crf", "blur+crf"
     blur_scale: float = 0.05  # sigma = scale * max(H, W) (script :1149)
     crf: CRFConfig = dataclasses.field(default_factory=CRFConfig)
+    # "device": blur + CRF batched on the card at the bucket resolution.
+    # "host": the parity path, per image in numpy and the native lattice
+    # CRF at exact GT resolution (``SegmentationRunner.finalize_image_parity``).
+    backend: str = "device"
     bilateral_subsample: int = 4
     bilateral_mode: str = "strided"
     nystrom_ridge: float = 1e-2

@@ -3,11 +3,16 @@ of ``pnp_ovss_tpu/models/bert.py``).
 
 Post-LN layers (eps 1e-12): text self-attention with the additive bias
 ``(1 - mask) * -10000`` (med.py:851), cross-attention over the ViT
-embeddings, then the GELU FFN. One layer (``capture_layer``, 0-indexed)
-returns its cross-attention probabilities; a ``cross_tap`` added to them
-after the softmax and before the context product is where GradCAM takes
-its gradient (bert.py:90-95). Layers before the captured one carry no tap
-gradient and run under ``torch.no_grad()``.
+embeddings, then the GELU FFN. The captured layers (``capture_layers``,
+an ascending tuple of 0-indexed layers: one for the segmentation pipeline,
+all twelve for the search's ensemble, bert.py:229-243) return their
+cross-attention probabilities; a
+``cross_tap`` added to them after the softmax and before the context
+product is where GradCAM takes its gradient (bert.py:90-95), all layers in
+one forward and one backward. Layers before the first captured one carry
+no tap gradient and run under ``torch.no_grad()``. With
+``image_embeds=None`` the encoder runs text-only (the reference's
+mode="text", no cross-attention; med.py:473-508), as ITC needs.
 """
 
 from __future__ import annotations
@@ -93,23 +98,31 @@ class BertLayer(nn.Module):
                                      dtype)
 
     def forward(self, x, bias, image_embeds, capture=False, tap=None):
+        """image_embeds None: text-only (no cross-attention, nothing
+        captured)."""
         x = self.attention(x, bias)
-        x, captured = self.crossattention(x, image_embeds, capture, tap)
+        captured = None
+        if image_embeds is not None:
+            x, captured = self.crossattention(x, image_embeds, capture, tap)
         h = self.output_dense(F.gelu(self.intermediate(x)))
         return self.output_norm(h + x), captured
 
 
 class BertFusionEncoder(nn.Module):
     """(ids, mask, image_embeds, cross_tap) -> (last hidden, captured
-    cross-attention probs of ``capture_layer`` [B, H, T, S])."""
+    cross-attention probs). ``capture_layers``: an ascending tuple of L
+    layers; probs and tap are [L, B, H, T, S], one slice per captured
+    layer. Text-only mode returns no probs."""
 
-    def __init__(self, cfg: BertConfig, capture_layer: int):
+    def __init__(self, cfg: BertConfig, capture_layers: Tuple[int, ...]):
         super().__init__()
-        if not 0 <= capture_layer < cfg.num_layers:
-            raise ValueError(f"capture_layer {capture_layer} outside "
-                             f"[0, {cfg.num_layers})")
+        layers = tuple(capture_layers)
+        if not layers or list(layers) != sorted(set(layers)) or \
+                not 0 <= layers[0] <= layers[-1] < cfg.num_layers:
+            raise ValueError(f"capture_layers {capture_layers}: want "
+                             f"ascending layers in [0, {cfg.num_layers})")
         self.cfg = cfg
-        self.capture_layer = capture_layer
+        self.capture_layers = layers
         self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
         self.position_embeddings = nn.Parameter(
             torch.zeros(cfg.max_position_embeddings, cfg.hidden_size))
@@ -122,21 +135,29 @@ class BertFusionEncoder(nn.Module):
         self,
         input_ids: torch.Tensor,  # [B, T] int64
         attention_mask: torch.Tensor,  # [B, T] {0, 1}
-        image_embeds: torch.Tensor,  # [B, S, encoder_width]
+        image_embeds: Optional[torch.Tensor],  # [B, S, encoder_width]
         cross_tap: Optional[torch.Tensor] = None,
-    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         dtype = DTYPES[self.cfg.dtype]
         t = input_ids.shape[1]
-        l = self.capture_layer
+        first = self.capture_layers[0]
         bias = (1.0 - attention_mask[:, None, None, :].float()) * -10000.0
         with torch.no_grad():  # nothing before the tap carries a gradient
             x = self.word_embeddings(input_ids).to(dtype) \
                 + self.position_embeddings[:t].to(dtype)
             x = self.embed_norm(x)
-            for layer in self.layers[:l]:
+            for layer in self.layers[:first]:
                 x, _ = layer(x, bias, image_embeds)
-        x, captured = self.layers[l](x, bias, image_embeds, capture=True,
-                                     tap=cross_tap)
-        for layer in self.layers[l + 1:]:
-            x, _ = layer(x, bias, image_embeds)
-        return x, captured
+        captured = []
+        for i in range(first, self.cfg.num_layers):
+            if i not in self.capture_layers:
+                x, _ = self.layers[i](x, bias, image_embeds)
+                continue
+            tap = None if cross_tap is None \
+                else cross_tap[self.capture_layers.index(i)]
+            x, cap = self.layers[i](x, bias, image_embeds, capture=True,
+                                    tap=tap)
+            captured.append(cap)
+        if image_embeds is None:
+            return x, None
+        return x, torch.stack(captured)

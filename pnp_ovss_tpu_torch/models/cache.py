@@ -5,8 +5,10 @@ The reference re-loads the torch checkpoint every run
 (base_model.py:86-127). Here the converted ``BlipITM`` state dict is saved
 with ``torch.save`` under ``~/.cache/pnp_ovss_tpu_torch/params/`` (or
 ``cache_dir``), keyed as the JAX package keys its cache: checkpoint path,
-size and mtime, the model config and the captured layer. Later runs load
-it straight into the model, with no renaming or resampling.
+size and mtime, the model config (``embed_dim`` included, so conversions
+from before the ITC projections were kept are not read) and the captured
+layers. Later runs load it straight into the model, with no renaming or
+resampling.
 """
 
 from __future__ import annotations
@@ -37,32 +39,33 @@ def _cache_key(ckpt_path: str, cfg: ModelConfig,
     return hashlib.sha256(payload.encode()).hexdigest()[:16]
 
 
-def cache_path(ckpt_path: str, cfg: ModelConfig, capture_layer: int, *,
+def cache_path(ckpt_path: str, cfg: ModelConfig,
+               capture_layers: Tuple[int, ...], *,
                cache_dir: Optional[str] = None) -> str:
     """Where ``load_params_cached`` keeps this checkpoint's conversion."""
     cache_dir = cache_dir or os.path.join(
         os.path.expanduser("~"), ".cache", "pnp_ovss_tpu_torch")
-    key = _cache_key(ckpt_path, cfg, (capture_layer,))
+    key = _cache_key(ckpt_path, cfg, capture_layers)
     return os.path.join(cache_dir, "params", key + ".pt")
 
 
 def load_params_cached(ckpt_path: str, cfg: ModelConfig,
-                       capture_layer: int = 7, *,
+                       capture_layers: Tuple[int, ...] = (7,), *,
                        cache_dir: Optional[str] = None, device="cuda",
                        vit_fused: bool = True) -> BlipITM:
     """The port's ``BlipITM`` from a LAVIS checkpoint on ``device``:
     converted (``convert.load_torch_checkpoint``) and cached on the first
     call, read from the cache on later ones."""
-    store = cache_path(ckpt_path, cfg, capture_layer, cache_dir=cache_dir)
+    store = cache_path(ckpt_path, cfg, capture_layers, cache_dir=cache_dir)
     if os.path.exists(store):
         log(f"params: cached conversion {store}")
-        model = convert.empty_model(cfg, capture_layer, device, vit_fused)
+        model = convert.empty_model(cfg, capture_layers, device, vit_fused)
         model.load_state_dict(
             torch.load(store, map_location="cpu", weights_only=True),
             strict=True)
         return model.requires_grad_(False).eval()
     model = convert.load_torch_checkpoint(
-        ckpt_path, cfg, capture_layer, device=device, vit_fused=vit_fused)
+        ckpt_path, cfg, capture_layers, device=device, vit_fused=vit_fused)
     os.makedirs(os.path.dirname(store), exist_ok=True)
     tmp = f"{store}.{os.getpid()}.tmp"
     torch.save({k: v.cpu() for k, v in model.state_dict().items()}, tmp)

@@ -11,10 +11,11 @@ straight into the port's modules, the counterpart of the JAX package's
   Linear of the ViT), so no tensor is transposed;
 - ``text_encoder.bert.*`` (some LAVIS exports) is read as
   ``text_encoder.*``;
-- the keys the ITM path never reads are dropped, as the JAX converter
-  drops or ignores them: the momentum towers and projections (``*_m``),
-  the ITC queues and their pointer, ``temp``, the ITC projections
-  (``vision_proj`` / ``text_proj``), BERT's serialised ``position_ids``
+- the ITC projections ``vision_proj`` / ``text_proj`` are kept (the
+  search's ITC scorer reads them);
+- the keys the port never reads are dropped, as the JAX converter drops
+  or ignores them: the momentum towers and projections (``*_m``), the ITC
+  queues and their pointer, ``temp``, BERT's serialised ``position_ids``
   buffer and its ``token_type_embeddings`` (the ITM path passes no token
   types; med.py:67-70,111-115);
 - the ViT position embeddings are resampled when the checkpoint's grid
@@ -29,8 +30,10 @@ same weights:
 - the ViT blocks' scanned stacks ``visual_encoder/blocks/block/*`` (leading
   layer axis) become ``visual_encoder.blocks.{i}``;
 - the BERT layer groups (``layers_pre/layer/*`` stacked over the layers
-  before the captured one, then ``layer_{i}``; models/bert.py:208-225)
-  become ``text_encoder.layers.{i}``;
+  before the captured one, then ``layer_{i}``; models/bert.py:208-225; a
+  tree drawn for several captured layers has ``layer_{i}`` for every
+  layer) become ``text_encoder.layers.{i}``; the ITM and ITC heads keep
+  their names;
 - Dense kernels [in, out] are transposed to Linear weights [out, in], the
   HWIO patch conv becomes OIHW, LayerNorm ``scale`` becomes ``weight``.
 """
@@ -38,7 +41,7 @@ same weights:
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -48,9 +51,9 @@ from pnp_ovss_tpu_torch.config import ModelConfig
 from pnp_ovss_tpu_torch.models.blip_itm import BlipITM
 from pnp_ovss_tpu_torch.models.vit import interpolate_pos_embed
 
-# LAVIS keys the ITM path never reads (prefixes, substrings, exact names).
+# LAVIS keys the port never reads (prefixes, substrings, exact names).
 _DROP_PREFIXES = ("visual_encoder_m.", "text_encoder_m.", "vision_proj_m.",
-                  "text_proj_m.", "vision_proj.", "text_proj.")
+                  "text_proj_m.")
 _DROP_NAMES = ("temp", "text_encoder.embeddings.position_ids",
                "text_encoder.embeddings.token_type_embeddings.weight")
 
@@ -97,23 +100,23 @@ def lavis_port_name(key: str) -> str:
     return key
 
 
-def empty_model(cfg: ModelConfig, capture_layer: int, device,
-                vit_fused: bool) -> BlipITM:
+def empty_model(cfg: ModelConfig, capture_layers: Tuple[int, ...],
+                device, vit_fused: bool) -> BlipITM:
     """A ``BlipITM`` built on ``device`` with default-initialised
     parameters, for a state dict to fill."""
     with torch.device(resolve_device(device)):
-        return BlipITM(cfg, capture_layer, vit_fused=vit_fused)
+        return BlipITM(cfg, capture_layers, vit_fused=vit_fused)
 
 
 def from_lavis_state_dict(sd: Mapping[str, object], cfg: ModelConfig, *,
-                          capture_layer: int, device="cuda",
+                          capture_layers: Tuple[int, ...], device="cuda",
                           vit_fused: bool = True) -> BlipITM:
     """A LAVIS BLIP-ITM state dict (tensors or numpy arrays) -> the port's
     ``BlipITM`` on ``device``, every tensor cast to its parameter's dtype.
     Raises ``KeyError`` for a key the port cannot place or a parameter no
     key fills, ``ValueError`` for a shape that does not fit; each names
     the key."""
-    model = empty_model(cfg, capture_layer, device, vit_fused)
+    model = empty_model(cfg, capture_layers, device, vit_fused)
     want = model.state_dict()
     port: Dict[str, torch.Tensor] = {}
     for key, val in sd.items():
@@ -142,8 +145,8 @@ def from_lavis_state_dict(sd: Mapping[str, object], cfg: ModelConfig, *,
     return model.requires_grad_(False).eval()
 
 
-def load_torch_checkpoint(path: str, cfg: ModelConfig, capture_layer: int,
-                          *, device="cuda",
+def load_torch_checkpoint(path: str, cfg: ModelConfig,
+                          capture_layers: Tuple[int, ...], *, device="cuda",
                           vit_fused: bool = True) -> BlipITM:
     """Load a LAVIS/BLIP ``.pth`` checkpoint (a state dict, or one under
     ``"model"``) on the CPU and place it in the port's ``BlipITM`` on
@@ -151,7 +154,7 @@ def load_torch_checkpoint(path: str, cfg: ModelConfig, capture_layer: int,
     resolve_device(device)  # no card: raise before reading the file
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     sd = ckpt.get("model", ckpt)
-    return from_lavis_state_dict(sd, cfg, capture_layer=capture_layer,
+    return from_lavis_state_dict(sd, cfg, capture_layers=capture_layers,
                                  device=device, vit_fused=vit_fused)
 
 
@@ -177,8 +180,9 @@ def _flatten(tree, prefix: str, out: Dict[str, np.ndarray]) -> None:
         out[prefix + key] = arr
 
 
-def from_jax_params(tree, cfg: ModelConfig, *, capture_layer: int,
-                    device="cuda", vit_fused: bool = True) -> BlipITM:
+def from_jax_params(tree, cfg: ModelConfig, *,
+                    capture_layers: Tuple[int, ...], device="cuda",
+                    vit_fused: bool = True) -> BlipITM:
     """``tree``: the JAX package's params (``{"params": {...}}`` or the
     inner dict) with numpy (or array-like) leaves. The fused and unfused
     ViT blocks share one parameter tree, as in the JAX package;
@@ -204,9 +208,10 @@ def from_jax_params(tree, cfg: ModelConfig, *, capture_layer: int,
     _flatten(te, "text_encoder.", flat)
     for i, layer in layers.items():
         _flatten(layer, f"text_encoder.layers.{i}.", flat)
-    _flatten({"itm_head": p["itm_head"]}, "", flat)
+    for head in ("itm_head", "vision_proj", "text_proj"):
+        _flatten({head: p[head]}, "", flat)
 
-    model = BlipITM(cfg, capture_layer, vit_fused=vit_fused)
+    model = BlipITM(cfg, capture_layers, vit_fused=vit_fused)
     model.load_state_dict({k: torch.tensor(v) for k, v in flat.items()},
                           strict=True)
     return model.to(resolve_device(device)).requires_grad_(False).eval()

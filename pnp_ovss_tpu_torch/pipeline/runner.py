@@ -1,7 +1,7 @@
 """End-to-end segmentation runner (counterpart of
 ``pnp_ovss_tpu/pipeline/runner.py``, with its sequence-parallel encode at
-data = 1; without data, tensor or pipeline parallelism and without the
-host parity path).
+data = 1 and its host parity path; without data, tensor or pipeline
+parallelism).
 
 ATTRIBUTION (per batch): salience-drop rounds (pipeline/drop.py: ViT
 encode, BERT GradCAM) -> token->class pooling ->
@@ -19,6 +19,13 @@ Work is queued on the device without host synchronisation until
 batch while submitting the next double-buffers the pipeline. With
 ``result(materialize_labels=False)`` the labels stay on the device, and
 ``make_hist_fn`` counts per-image confusion matrices there.
+
+HOST PARITY PATH (``finalize_image_parity``, per image, numpy and the
+native lattice CRF, no device work): the grid-resolution thresholded maps
+that ``submit_batch(return_grid_maps=True)`` returns, resized ONCE to GT
+resolution, then background, blur and the DenseCRF at GT resolution, as
+the reference does them. The device postprocess still runs for such a
+batch, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -56,6 +63,8 @@ class BatchResult:
     bg_enable: np.ndarray  # [B] bool
     maps_r0: Optional[np.ndarray] = None  # [B, K, Hb, Wb] with return_maps
     maps_agg: Optional[np.ndarray] = None
+    grid_r0: Optional[np.ndarray] = None  # [B, K, g, g] (return_grid_maps)
+    grid_agg: Optional[np.ndarray] = None
 
 
 @dataclasses.dataclass
@@ -67,6 +76,8 @@ class PendingBatch:
     bg_enable: np.ndarray
     maps_r0_dev: Optional[torch.Tensor] = None
     maps_agg_dev: Optional[torch.Tensor] = None
+    grid_r0_dev: Optional[torch.Tensor] = None
+    grid_agg_dev: Optional[torch.Tensor] = None
 
     def result(self, *, materialize_labels: bool = True) -> BatchResult:
         """Copy the results to the host (waits for the device).
@@ -81,18 +92,22 @@ class PendingBatch:
         return BatchResult(
             labels_r0=labels[:, 0], labels_agg=labels[:, 1],
             num_classes=self.num_classes, bg_enable=self.bg_enable,
-            maps_r0=opt(self.maps_r0_dev), maps_agg=opt(self.maps_agg_dev))
+            maps_r0=opt(self.maps_r0_dev), maps_agg=opt(self.maps_agg_dev),
+            grid_r0=opt(self.grid_r0_dev), grid_agg=opt(self.grid_agg_dev))
 
 
 class SegmentationRunner:
-    def __init__(self, cfg: PipelineConfig, model: BlipITM, *,
+    def __init__(self, cfg: PipelineConfig, model: Optional[BlipITM], *,
                  device="cuda", bucket_size: int = 192,
                  encode_parallel: Optional[str] = None,
                  sp_group: Optional[SequenceGroup] = None):
-        """``model``: a ``BlipITM`` whose ``capture_layer`` is
-        ``cfg.attribution.layer - 1`` (``init_blip_itm`` or
-        ``from_jax_params``); it is moved to ``device``. Raises when
-        ``device`` is CUDA and there is no card.
+        """``model``: a ``BlipITM`` whose ``capture_layers`` are
+        ``(cfg.attribution.layer - 1,)`` (``init_blip_itm`` or
+        ``from_jax_params``); it is moved to ``device``. None makes a
+        postprocess-only runner (``_post``, ``finalize_image``,
+        ``finalize_image_parity``; the synthetic postprocess gate), whose
+        ``submit_batch`` cannot run. Raises when ``device`` is CUDA and
+        there is no card.
 
         ``encode_parallel``: None encodes on this process alone; "sp"
         splits the ViT encode's tokens over ``sp_group``
@@ -103,10 +118,13 @@ class SegmentationRunner:
         results. "pp" (pipeline parallelism) is not ported yet."""
         self.cfg = cfg
         self.device = resolve_device(device)
-        if model.text_encoder.capture_layer != cfg.attribution.layer - 1:
+        if model is not None and \
+                model.text_encoder.capture_layers != \
+                (cfg.attribution.layer - 1,):
             raise ValueError(
-                f"model captures BERT layer {model.text_encoder.capture_layer}"
-                f", config asks for {cfg.attribution.layer - 1}")
+                f"model captures BERT layers "
+                f"{model.text_encoder.capture_layers}, config asks for "
+                f"({cfg.attribution.layer - 1},)")
         if encode_parallel not in (None, "sp", "pp"):
             raise ValueError(f"encode_parallel must be None, 'sp' or 'pp'; "
                              f"got {encode_parallel!r}")
@@ -117,8 +135,12 @@ class SegmentationRunner:
             raise ValueError("encode_parallel='sp' needs an sp_group "
                              "(parallel.mesh.make_mesh_2d), and an sp_group "
                              "needs encode_parallel='sp'")
-        self.model = model.to(self.device)
         self.bucket = bucket_size
+        self._mean = torch.as_tensor(CLIP_MEAN, device=self.device)
+        self._std = torch.as_tensor(CLIP_STD, device=self.device)
+        self.model = None if model is None else model.to(self.device)
+        if model is None:
+            return
         if sp_group is None:
             embed = self.model.encode_image
         else:
@@ -129,8 +151,6 @@ class SegmentationRunner:
             embed, self._bert_gradcam,
             cfg=cfg.drop, grid=cfg.model.vit.grid,
             patch_size=cfg.model.vit.patch_size)
-        self._mean = torch.as_tensor(CLIP_MEAN, device=self.device)
-        self._std = torch.as_tensor(CLIP_STD, device=self.device)
 
     def _to_dev(self, x) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), device=self.device)
@@ -144,17 +164,21 @@ class SegmentationRunner:
         cfg = self.cfg
         gc, logits = gradcam_from_embeds(self.model, embeds, ids, mask,
                                          grid=cfg.model.vit.grid)
-        return gc[:, cfg.attribution.head], logits
+        return gc[0, :, cfg.attribution.head], logits
 
     def _finish_maps(self, gc0, agg, pool_matrix):
-        """Pool + threshold + bucket-upsample both GradCAM variants."""
-        out = []
+        """Pool + threshold + bucket-upsample both GradCAM variants ->
+        ((maps_r0, maps_agg) [B, K, Hb, Wb], (grid_r0, grid_agg) [B, K, g,
+        g]). The grid maps (thresholded, before the upsample) are what the
+        parity path resizes to GT in one step."""
+        out, grids = [], []
         for gc, rescale in ((gc0, True), (agg, False)):
             pooled = pool_token_maps(pool_matrix, gc)
             masked = masks_mod.threshold_maps(pooled, self.cfg.threshold)
+            grids.append(masked)
             out.append(masks_mod.upsample_maps(
                 masked, self.bucket, self.bucket, rescale=rescale))
-        return tuple(out)
+        return tuple(out), tuple(grids)
 
     def _post(self, maps_r0, maps_agg, bg_enable, class_valid, images_rgb,
               xy_scale):
@@ -203,9 +227,12 @@ class SegmentationRunner:
         images_rgb_bucket: np.ndarray,  # [B, Hb, Wb, 3] 0-255
         *,
         return_maps: bool = False,
+        return_grid_maps: bool = False,
         gt_sizes: Optional[Sequence[Tuple[int, int]]] = None,
     ) -> PendingBatch:
-        """Queue one batch on the device.
+        """Queue one batch on the device. ``return_maps``: keep the
+        bucket-resolution maps (viz); ``return_grid_maps``: keep the
+        grid-resolution thresholded maps (the parity path).
 
         gt_sizes: per-image (H, W) of the ground truth; with
         ``crf_xy_gt_scale`` the CRF's spatial stds scale per axis by
@@ -228,7 +255,7 @@ class SegmentationRunner:
         gc0, agg = drop_mod.run_drop_rounds(
             self._round_step, img, ids, mask,
             cfg=cfg.drop, num_patches=cfg.model.vit.num_patches)
-        maps_r0, maps_agg = self._finish_maps(
+        (maps_r0, maps_agg), (grid_r0, grid_agg) = self._finish_maps(
             gc0, agg, self._to_dev(caption_batch.pool_matrix))
 
         b = images_np.shape[0]
@@ -247,7 +274,9 @@ class SegmentationRunner:
             labels_dev=labels, num_classes=np.asarray(n),
             bg_enable=bg_enable,
             maps_r0_dev=maps_r0 if return_maps else None,
-            maps_agg_dev=maps_agg if return_maps else None)
+            maps_agg_dev=maps_agg if return_maps else None,
+            grid_r0_dev=grid_r0 if return_grid_maps else None,
+            grid_agg_dev=grid_agg if return_grid_maps else None)
 
     def make_hist_fn(self, n_class: int):
         """Per-image confusion matrices at bucket resolution, on the
@@ -278,4 +307,54 @@ class SegmentationRunner:
             .resize((w, h), Image.NEAREST))
         return masks_mod.remap_channels_to_categories(
             up, np.asarray(category_ids, np.int32), include_background=True,
+            max_channels=self.cfg.max_classes)
+
+    def finalize_image_parity(
+        self,
+        maps_grid: np.ndarray,  # [K, g, g] thresholded grid-res class maps
+        bg_enable: bool,
+        class_valid: np.ndarray,  # [K]
+        category_ids: Sequence[int],
+        image_rgb_full: np.ndarray,  # [H, W, 3] original image
+        gt_shape: Tuple[int, int],
+        *,
+        rescale: bool = False,  # True for the 1-drop (r0) variant
+    ) -> np.ndarray:
+        """The parity path, the reference's per-image CPU postprocess: ONE
+        bilinear resize of the grid maps to GT resolution (script
+        :358-360), Scale_0_1 on the 1-drop variant only (:362 vs :441),
+        the background channel (:370), blur + min-max and the native
+        permutohedral CRF at GT resolution (:1002-1074), then the remap to
+        category ids. Numpy and the lattice only: no device work, so the
+        CLI runs it on its finalize worker."""
+        from pnp_ovss_tpu_torch.ops import crf_host, host_post
+
+        h, w = gt_shape
+        k = int(np.sum(class_valid))
+        maps = host_post.resize_bilinear_np(
+            np.asarray(maps_grid[:k], np.float32), h, w)
+        if rescale:
+            maps = host_post.rescale_0_1_np(maps)
+        if bg_enable:
+            background = (maps.max(axis=0) == 0).astype(np.float32)
+            wbg = np.concatenate([background[None], maps], axis=0)
+        else:
+            wbg = maps
+        mode = self.cfg.postprocess.mode
+        if "blur" in mode:
+            sigma = self.cfg.postprocess.blur_scale * max(h, w)
+            wbg = host_post.blur_and_minmax_np(wbg, sigma)
+        if "crf" in mode:
+            img = np.asarray(image_rgb_full, np.float32)
+            if img.shape[:2] != (h, w):
+                from pnp_ovss_tpu_torch.data.transforms import resize_rgb
+
+                img = resize_rgb(img, (h, w)).astype(np.float32)
+            labels = crf_host.densecrf_labels(wbg, img,
+                                              self.cfg.postprocess.crf)
+        else:
+            labels = np.argmax(wbg, axis=0).astype(np.int32)
+        return masks_mod.remap_channels_to_categories(
+            labels, np.asarray(category_ids, np.int32),
+            include_background=bool(bg_enable),
             max_channels=self.cfg.max_classes)

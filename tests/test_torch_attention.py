@@ -189,7 +189,7 @@ def test_three_head_vit_takes_k9_and_matches_jax(monkeypatch):
                                 embed_dim=16, max_text_len=16)
     pcfg = pcfg_mod.ModelConfig(vit=pcfg_mod.ViTConfig(**vit_kw),
                                 bert=pcfg_mod.BertConfig(**bert_kw),
-                                max_text_len=16)
+                                embed_dim=16, max_text_len=16)
     params = init_params(jax.random.PRNGKey(0), jcfg, capture_layers=(0,))
     jmodel = JaxBlipITM(jcfg, capture_layers=(0,), attn_impl="pallas")
     images = np.random.RandomState(0).randn(2, 192, 192, 3) \
@@ -198,7 +198,7 @@ def test_three_head_vit_takes_k9_and_matches_jax(monkeypatch):
                                    method=JaxBlipITM.encode_image))
     want = np.asarray(fn(params, jnp.asarray(images)))
     model = from_jax_params(jax.tree.map(np.asarray, params), pcfg,
-                            capture_layer=0, device="cpu")
+                            capture_layers=(0,), device="cpu")
     assert not model.visual_encoder.fused
     calls = {"flash_mha": 0}
     real = port_flash.flash_mha

@@ -112,6 +112,10 @@ def env(tmp_path_factory):
     jax_cli.main(common + ["--save_path", str(root / "jax")])
     port_cli.main(common + ["--save_path", str(root / "port"),
                             "--device", "cpu"])
+    host = ["--postprocess_backend", "host"]
+    jax_cli.main(common + host + ["--save_path", str(root / "jax_host")])
+    port_cli.main(common + host + ["--save_path", str(root / "port_host"),
+                                   "--device", "cpu"])
     yield dict(root=root, home=home, ckpt=ckpt, common=common)
     mp.undo()
 
@@ -130,6 +134,24 @@ def test_port_hists_match_the_jax_cli(env, sub):
         assert h.shape == (21, 21) and h.sum() == H * W, name
         l1 = np.abs(h.astype(np.int64) - jax_h[name]).sum()
         assert l1 <= 0.01 * H * W, (name, l1)
+
+
+@pytest.mark.parametrize("sub", HIST_DIRS)
+def test_host_backend_hists_match_the_jax_cli(env, sub):
+    """``--postprocess_backend host``: the grid maps resized once to GT,
+    blur and the native lattice CRF at GT resolution on the finalize
+    worker, against the JAX CLI's parity path (``tests/test_cli.py``'s
+    ``test_cli_host_parity_backend``), within the same 1% L1 bar."""
+    jax_h = _hists(env["root"] / "jax_host", sub)
+    port_h = _hists(env["root"] / "port_host", sub)
+    assert sorted(port_h) == sorted(jax_h) and len(port_h) == N_IMG
+    for name, h in port_h.items():
+        assert h.shape == (21, 21) and h.sum() == H * W, name
+        l1 = np.abs(h.astype(np.int64) - jax_h[name]).sum()
+        assert l1 <= 0.01 * H * W, (name, l1)
+    # The parity path labels other pixels than the device postprocess.
+    assert any(not np.array_equal(h, _hists(env["root"] / "port", sub)[n])
+               for n, h in port_h.items())
 
 
 @pytest.mark.parametrize("sub", HIST_DIRS)
@@ -186,13 +208,13 @@ def test_in_the_wild_and_viz(env, tmp_path):
     assert pred.nonzero()[0].tolist() == [7, 11]  # cat, dog
 
 
+# Fixed ids keep the cases' names stable as the unported list shrinks.
 @pytest.mark.parametrize("flags, item", [
-    (["--postprocess_backend", "host"], "A2"),
-    (["--tensor_parallel", "2"], "A8"),
-    (["--sequence_parallel", "2"], "A8"),
-    (["--pipeline_parallel", "2"], "A8"),
-    (["--mesh"], "A8"),
-    (["--distributed"], "A8"),
+    pytest.param(["--tensor_parallel", "2"], "A8", id="flags1-A8"),
+    pytest.param(["--sequence_parallel", "2"], "A8", id="flags2-A8"),
+    pytest.param(["--pipeline_parallel", "2"], "A8", id="flags3-A8"),
+    pytest.param(["--mesh"], "A8", id="flags4-A8"),
+    pytest.param(["--distributed"], "A8", id="flags5-A8"),
 ])
 def test_unported_flags_raise(env, tmp_path, flags, item):
     with pytest.raises(SystemExit, match=item):

@@ -9,6 +9,8 @@ tensor must be equal. ``interpolate_pos_embed`` is held against the JAX
 function within 1e-5, and the parameter cache must convert once.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -57,26 +59,29 @@ def _assert_same_params(a, b):
         assert torch.equal(sa[k], sb[k]), k
 
 
-@pytest.mark.parametrize("capture_layer", [0, 1])
+@pytest.mark.parametrize("capture_layers", [
+    pytest.param((0,), id="0"), pytest.param((1,), id="1"),
+    pytest.param((0, 1), id="capture_layer2")])
 @pytest.mark.parametrize("layout", ["itm", "retrieval", "bert_prefix"])
-def test_lavis_load_equals_the_jax_route(layout, capture_layer):
+def test_lavis_load_equals_the_jax_route(layout, capture_layers):
+    """Also for the search's all-layer capture, whose JAX tree has
+    ``layer_{i}`` for every layer."""
     sd, extras = _lavis_sd()
     full = dict(sd)
     if layout != "itm":
         full.update(extras)
     if layout == "bert_prefix":
         full = _bert_prefixed(full)
-    got = from_lavis_state_dict(full, PCFG, capture_layer=capture_layer,
+    got = from_lavis_state_dict(full, PCFG, capture_layers=capture_layers,
                                 device="cpu")
-    tree = convert_state_dict(sd, JCFG, capture_layers=(capture_layer,))
+    tree = convert_state_dict(sd, JCFG, capture_layers=capture_layers)
     want = from_jax_params(jax.tree.map(np.asarray, tree), PCFG,
-                           capture_layer=capture_layer, device="cpu")
+                           capture_layers=capture_layers, device="cpu")
     _assert_same_params(got, want)
-    # And straight from the dict: every ITM tensor lands under its name.
+    # And straight from the dict: every tensor, the ITC projections
+    # included, lands under its name.
     params = got.state_dict()
     for k, v in sd.items():
-        if k.startswith(("vision_proj", "text_proj")):
-            continue
         name = lavis_port_name(k)
         assert torch.equal(params[name], torch.tensor(v)), k
 
@@ -86,9 +91,9 @@ def test_pth_checkpoint_loads_like_the_state_dict(tmp_path):
     path = tmp_path / "model.pth"
     torch.save({"model": {k: torch.tensor(v) for k, v in
                           {**sd, **extras}.items()}, "epoch": 5}, path)
-    got = load_torch_checkpoint(str(path), PCFG, 0, device="cpu")
-    _assert_same_params(got, from_lavis_state_dict(sd, PCFG, capture_layer=0,
-                                                   device="cpu"))
+    got = load_torch_checkpoint(str(path), PCFG, (0,), device="cpu")
+    _assert_same_params(got, from_lavis_state_dict(
+        sd, PCFG, capture_layers=(0,), device="cpu"))
     assert not got.training and not any(
         p.requires_grad for p in got.parameters())
 
@@ -111,7 +116,7 @@ def test_checkpoint_at_another_grid_resamples_pos_embed():
     sd, _ = _lavis_sd(2)
     rng = np.random.RandomState(3)
     sd["visual_encoder.pos_embed"] = rng.randn(1, 17, 32).astype(np.float32)
-    got = from_lavis_state_dict(sd, PCFG, capture_layer=0, device="cpu")
+    got = from_lavis_state_dict(sd, PCFG, capture_layers=(0,), device="cpu")
     want = jax_interp(jnp.asarray(sd["visual_encoder.pos_embed"]), 9)
     np.testing.assert_allclose(got.visual_encoder.pos_embed.numpy(),
                                np.asarray(want), rtol=0, atol=1e-5)
@@ -130,24 +135,39 @@ def test_param_cache_converts_once(tmp_path, monkeypatch):
 
     monkeypatch.setattr(convert, "load_torch_checkpoint", counting)
     kw = dict(cache_dir=str(tmp_path / "cache"), device="cpu")
-    first = cache.load_params_cached(path, PCFG, 0, **kw)
-    second = cache.load_params_cached(path, PCFG, 0, **kw)
+    first = cache.load_params_cached(path, PCFG, (0,), **kw)
+    second = cache.load_params_cached(path, PCFG, (0,), **kw)
     assert calls == [path]
     _assert_same_params(first, second)
-    store = cache.cache_path(path, PCFG, 0, cache_dir=kw["cache_dir"])
+    store = cache.cache_path(path, PCFG, (0,), cache_dir=kw["cache_dir"])
     assert store.startswith(kw["cache_dir"]) and tmp_path.joinpath(
         "cache", "params").exists()
-    # Another captured layer is another conversion.
-    assert cache.cache_path(path, PCFG, 1, cache_dir=kw["cache_dir"]) != store
-    cache.load_params_cached(path, PCFG, 1, **kw)
+    # Another captured layer is another conversion, and so are the
+    # search's all-layer capture and another ITC width (conversions from
+    # before the ITC projections were kept have no place to go).
+    assert cache.cache_path(path, PCFG, (1,),
+                            cache_dir=kw["cache_dir"]) != store
+    cache.load_params_cached(path, PCFG, (1,), **kw)
     assert calls == [path, path]
+    assert len({cache.cache_path(path, cfg, layer) for cfg, layer in (
+        (PCFG, (0,)), (PCFG, (0, 1)),
+        (dataclasses.replace(PCFG, embed_dim=8), (0,)))}) == 3
 
 
 def test_unknown_key_raises_and_names_it():
     sd, _ = _lavis_sd(5)
     sd["visual_encoder.adapter.weight"] = np.zeros((4, 4), np.float32)
     with pytest.raises(KeyError, match="visual_encoder.adapter.weight"):
-        from_lavis_state_dict(sd, PCFG, capture_layer=0, device="cpu")
+        from_lavis_state_dict(sd, PCFG, capture_layers=(0,), device="cpu")
+
+
+def test_unknown_itc_projection_key_raises():
+    """The ITC projections are kept, so a stray key under their names
+    raises like any other."""
+    sd, _ = _lavis_sd(5)
+    sd["vision_proj.scale"] = np.zeros((4,), np.float32)
+    with pytest.raises(KeyError, match="vision_proj.scale"):
+        from_lavis_state_dict(sd, PCFG, capture_layers=(0,), device="cpu")
 
 
 def test_missing_key_raises_and_names_it():
@@ -155,14 +175,14 @@ def test_missing_key_raises_and_names_it():
     del sd["text_encoder.encoder.layer.1.output.dense.bias"]
     with pytest.raises(KeyError, match=r"text_encoder\.layers\.1\."
                                        r"output_dense\.bias"):
-        from_lavis_state_dict(sd, PCFG, capture_layer=0, device="cpu")
+        from_lavis_state_dict(sd, PCFG, capture_layers=(0,), device="cpu")
 
 
 def test_shape_that_does_not_fit_raises_and_names_it():
     sd, _ = _lavis_sd(7)
     sd["itm_head.weight"] = np.zeros((3, 32), np.float32)
     with pytest.raises(ValueError, match="itm_head.weight"):
-        from_lavis_state_dict(sd, PCFG, capture_layer=0, device="cpu")
+        from_lavis_state_dict(sd, PCFG, capture_layers=(0,), device="cpu")
 
 
 def test_both_bert_prefixes_raise():
@@ -170,4 +190,4 @@ def test_both_bert_prefixes_raise():
     sd["text_encoder.bert.embeddings.LayerNorm.bias"] = \
         sd["text_encoder.embeddings.LayerNorm.bias"]
     with pytest.raises(KeyError, match="a second time"):
-        from_lavis_state_dict(sd, PCFG, capture_layer=0, device="cpu")
+        from_lavis_state_dict(sd, PCFG, capture_layers=(0,), device="cpu")

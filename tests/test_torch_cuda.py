@@ -19,7 +19,10 @@ ragged chunks against K2's rows, K9 at odd S, and a two-rank
 sequence-parallel encode with both ranks on the one card (gloo); the
 evaluation path on the card (``make_hist_fn`` over ragged batches against
 numpy, labels kept on the card by ``result(materialize_labels=False)``)
-and the tiny-width CLI on the card against the same run on the CPU.
+and the tiny-width CLI on the card against the same run on the CPU; the
+synthetic postprocess gate's device side (strided s=4 and exact, bucket
+192) on the card against the CPU, and the search's all-layer GradCAM
+ensemble at odd text lengths.
 """
 
 import dataclasses
@@ -765,7 +768,7 @@ def _tiny_runner(device):
     cfg = dataclasses.replace(
         cfg, attribution=dataclasses.replace(cfg.attribution, layer=1,
                                              head=1))
-    model = init_blip_itm(cfg.model, capture_layer=0, device=device)
+    model = init_blip_itm(cfg.model, capture_layers=(0,), device=device)
     return cfg, SegmentationRunner(cfg, model, device=device, bucket_size=32)
 
 
@@ -861,3 +864,78 @@ def test_tiny_cli_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypatch):
             assert h.sum() == pixels
             l1 = np.abs(h - cpu[sub][img_id]).sum()
             assert l1 <= 0.01 * pixels, (sub, img_id, l1)
+
+
+def _gate():
+    import chip_smoke
+
+    return chip_smoke.load_script("synthetic_postprocess_gate_torch")
+
+
+@pytest.mark.parametrize("tag", ["strided_s4_b192", "exact_s1_b192"])
+def test_gate_device_side_on_the_card_matches_the_cpu(cuda, tag):
+    """The synthetic gate's device side (``_post`` at bucket 192, then
+    the nearest upsample to GT) on the card against the CPU on the gate's
+    first two scenes of seed 0: GT-resolution labels equal on at least
+    99% of pixels (the card's CRF products are bf16, the CPU's f32;
+    phase 4 of chip_smoke holds each CRF branch alone at 0.999 at 64 x
+    64)."""
+    from pnp_ovss_tpu_torch.config import PipelineConfig
+    from pnp_ovss_tpu_torch.pipeline.runner import SegmentationRunner
+
+    gate = _gate()
+    _, mode, sub, bucket = next(c for c in gate.DEVICE_GRID if c[0] == tag)
+    base = PipelineConfig()
+    cfg = dataclasses.replace(base, postprocess=dataclasses.replace(
+        base.postprocess, bilateral_mode=mode, bilateral_subsample=sub))
+    scenes = gate.make_scenes(0, 2, 6, base.model.vit.grid)
+    tgrids = [gate.threshold_grid(m, k, base) for (_, _, m), _, k in scenes]
+    _build.reset_launch_counts()
+    card = gate.device_labels(SegmentationRunner(cfg, None, device=cuda,
+                                                 bucket_size=bucket),
+                              scenes, tgrids)
+    kernel = "crf_fused_iteration" if sub > 1 else "gaussian_kernel_matmul"
+    assert _build.LAUNCHES[kernel] > 0
+    cpu = gate.device_labels(SegmentationRunner(cfg, None, device="cpu",
+                                                bucket_size=bucket),
+                             scenes, tgrids)
+    for a, b in zip(card, cpu):
+        assert a.shape == b.shape and len(np.unique(a)) > 1
+        assert (a == b).mean() >= 0.99, (a == b).mean()
+
+
+@pytest.mark.parametrize("text_len", [13, 29])
+def test_ensemble_gradcam_on_the_card_at_odd_text_lengths(cuda, text_len):
+    """The all-layer GradCAM ensemble of a narrow model whose ViT the
+    fused kernels take (192 px, width 128, 2 heads of 64) at text lengths
+    that are no multiple of 8, on the card against the same weights on
+    the CPU: GradCAM map sums within phase 4's 0.04 of the largest,
+    logits within 0.05; one encode launches K1 = K2 = K3 = 2 (layers)."""
+    import chip_smoke
+    from pnp_ovss_tpu_torch.attribution.gradcam import gradcam_from_tap
+    from pnp_ovss_tpu_torch.models.blip_itm import init_blip_itm
+
+    cfg = chip_smoke.narrow_config(192).model
+    layers = tuple(range(cfg.bert.num_layers))
+    model = init_blip_itm(cfg, capture_layers=layers, seed=2, device=cuda)
+    rng = np.random.RandomState(text_len)
+    images = torch.tensor(rng.randn(2, 192, 192, 3).astype(np.float32))
+    ids = torch.tensor(rng.randint(5, cfg.bert.vocab_size - 2,
+                                   (2, text_len)))
+    ids[:, 0] = cfg.bert.enc_token_id
+    mask = torch.ones(2, text_len, dtype=torch.int32)
+    mask[1, text_len - 4:] = 0
+    _build.reset_launch_counts()
+    got, logits = gradcam_from_tap(model, images.to(cuda), ids.to(cuda),
+                                   mask.to(cuda), grid=cfg.vit.grid)
+    assert {k: _build.LAUNCHES[k] for k in chip_smoke._VIT_336} == \
+        dict.fromkeys(chip_smoke._VIT_336, 2)
+    model.cpu()
+    want, want_logits = gradcam_from_tap(model, images, ids, mask,
+                                         grid=cfg.vit.grid)
+    assert got.shape == want.shape == (2, 2, 2, text_len - 1, 12, 12)
+    a, b = got.cpu().sum((-2, -1)), want.sum((-2, -1))
+    assert torch.isfinite(got).all() and b[0].abs().max() > 0
+    assert (a - b).abs().max() <= 0.04 * b.abs().max()
+    torch.testing.assert_close(logits.cpu(), want_logits, rtol=0.05,
+                               atol=0.05)

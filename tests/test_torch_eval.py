@@ -75,7 +75,7 @@ def runners():
     params = init_params(jax.random.PRNGKey(0), jcfg.model,
                          capture_layers=(0,))
     model = from_jax_params(jax.tree.map(np.asarray, params), pcfg.model,
-                            capture_layer=0, device="cpu")
+                            capture_layers=(0,), device="cpu")
     return (JaxRunner(jcfg, params, attn_impl="xla", bucket_size=16,
                       bilateral_impl="reference"),
             SegmentationRunner(pcfg, model, device="cpu", bucket_size=16))

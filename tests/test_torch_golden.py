@@ -48,7 +48,7 @@ def test_port_matches_tiny_pipeline_golden():
         max_text_len=cfg.model.max_text_len, max_classes=cfg.max_classes)
     rgb = rng.randint(0, 255, (4, 32, 32, 3)).astype(np.float32)
     model = from_jax_params(jax.tree.map(np.asarray, params), cfg.model,
-                            capture_layer=0, device="cpu")
+                            capture_layers=(0,), device="cpu")
     runner = SegmentationRunner(cfg, model, device="cpu", bucket_size=32)
     res = runner.run_batch(images, cap, rgb, return_maps=True)
 

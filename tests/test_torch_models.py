@@ -50,7 +50,7 @@ def _configs(narrow: bool):
                                 embed_dim=16, max_text_len=16)
     pcfg = pcfg_mod.ModelConfig(vit=pcfg_mod.ViTConfig(**vit_kw),
                                 bert=pcfg_mod.BertConfig(**bert_kw),
-                                max_text_len=16)
+                                embed_dim=16, max_text_len=16)
     return jcfg, pcfg
 
 
@@ -64,7 +64,7 @@ def pair(request):
     params = init_params(jax.random.PRNGKey(0), jcfg, capture_layers=(layer,))
     jmodel = JaxBlipITM(jcfg, capture_layers=(layer,), attn_impl="pallas")
     pmodel = from_jax_params(jax.tree.map(np.asarray, params), pcfg,
-                             capture_layer=layer, device="cpu",
+                             capture_layers=(layer,), device="cpu",
                              vit_fused=False)
     rng = np.random.RandomState(0)
     images = rng.randn(2, jcfg.vit.image_size, jcfg.vit.image_size, 3) \
@@ -103,7 +103,8 @@ def test_itm_logits_and_captured_probs_match_jax(pair):
             torch.from_numpy(embeds), torch.from_numpy(cap.input_ids).long(),
             torch.from_numpy(cap.attention_mask))
     np.testing.assert_allclose(p_logits.numpy(), np.asarray(logits), **TOL)
-    np.testing.assert_allclose(p_probs.numpy(), np.asarray(probs)[0],
+    assert p_probs.shape == np.asarray(probs).shape
+    np.testing.assert_allclose(p_probs.numpy(), np.asarray(probs),
                                rtol=1e-4, atol=1e-6)
 
 
@@ -128,7 +129,7 @@ def test_gradcam_matches_jax(pair):
         pmodel, e, torch.from_numpy(cap.input_ids).long(),
         torch.from_numpy(cap.attention_mask), grid=jcfg.vit.grid)
     assert e.grad is None
-    want = np.asarray(want)[0]
+    want = np.asarray(want)
     assert got.shape == want.shape
     scale = np.abs(want).max()
     assert scale > 0
@@ -140,8 +141,8 @@ def test_gradcam_matches_jax(pair):
 
 def test_init_is_seeded():
     _, pcfg = _configs(False)
-    a = init_blip_itm(pcfg, capture_layer=1, seed=3, device="cpu")
-    b = init_blip_itm(pcfg, capture_layer=1, seed=3, device="cpu")
+    a = init_blip_itm(pcfg, capture_layers=(1,), seed=3, device="cpu")
+    b = init_blip_itm(pcfg, capture_layers=(1,), seed=3, device="cpu")
     for (n, x), (_, y) in zip(a.named_parameters(), b.named_parameters()):
         assert not x.requires_grad
         torch.testing.assert_close(x, y, rtol=0, atol=0, msg=n)
@@ -150,16 +151,23 @@ def test_init_is_seeded():
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port stands alone: no ``jax`` and no
     ``pnp_ovss_tpu`` import anywhere in it, nor in the scripts that drive
-    it on the card (``chip_smoke.py`` and the port's profiling scripts)."""
+    it on the card (``chip_smoke.py``, the port's profiling and timing
+    scripts and its synthetic postprocess gate)."""
     files = sorted(PKG.rglob("*.py"))
     assert len(files) > 10
     assert PKG / "parallel" / "sequence.py" in files
     assert PKG / "cli" / "segment.py" in files
+    for new in ("ops/host_post.py", "ops/crf_host.py", "cli/search.py",
+                "cli/token_contrast.py", "search/reward.py",
+                "search/optimizer.py"):
+        assert PKG / new in files, new
     repo = PKG.parent
     card_scripts = [repo / "chip_smoke.py",
                     repo / "scripts" / "profile_torch_port.py",
                     repo / "scripts" / "kernel_ablation.py",
-                    repo / "scripts" / "time_k8.py"]
+                    repo / "scripts" / "time_k8.py",
+                    repo / "scripts" / "time_host_post.py",
+                    repo / "scripts" / "synthetic_postprocess_gate_torch.py"]
     assert all(p.exists() for p in card_scripts)
     for path in files + card_scripts:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -183,8 +191,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
     cfg = pcfg_mod.PipelineConfig.tiny()
     cfg = dataclasses.replace(
         cfg, attribution=dataclasses.replace(cfg.attribution, layer=1))
-    model = init_blip_itm(cfg.model, capture_layer=0, device="cpu")
+    model = init_blip_itm(cfg.model, capture_layers=(0,), device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         SegmentationRunner(cfg, model)
     with pytest.raises(RuntimeError, match="cuda"):
-        init_blip_itm(cfg.model, capture_layer=0)
+        init_blip_itm(cfg.model, capture_layers=(0,))

@@ -64,7 +64,7 @@ def results(request):
                      bilateral_impl="pallas")
     want = jrun.run_batch(images, cap, rgb, return_maps=True, gt_sizes=gt)
     model = from_jax_params(jax.tree.map(np.asarray, params), pcfg.model,
-                            capture_layer=0, device="cpu", vit_fused=False)
+                            capture_layers=(0,), device="cpu", vit_fused=False)
     prun = SegmentationRunner(pcfg, model, device="cpu", bucket_size=BUCKET)
     got = prun.run_batch(images, cap, rgb, return_maps=True, gt_sizes=gt)
     yield jrun, prun, want, got

@@ -107,12 +107,13 @@ def sp2(tmp_path_factory):
         jcfg.model.vit, {"params": params["params"]["visual_encoder"]},
         jnp.asarray(images), mesh, impl="pallas"), np.float32)
     model = from_jax_params(jax.tree.map(np.asarray, params), pcfg.model,
-                            capture_layer=0, device="cpu")
+                            capture_layers=(0,), device="cpu")
     assert model.visual_encoder.fused
     tasks["fused"] = ("encode", model.visual_encoder,
                       torch.from_numpy(images))
 
-    model = init_blip_itm(pcfg.model, capture_layer=0, seed=5, device="cpu")
+    model = init_blip_itm(pcfg.model, capture_layers=(0,), seed=5,
+                          device="cpu")
     tok = WordPieceTokenizer.toy(["a", "picture", "of"] + NMS)
     cap = build_caption_batch(
         [["dog", "grass"], ["cat"], ["sky", "dog", "cat"], ["grass"]], tok,
@@ -212,7 +213,7 @@ def _tiny_runner(**kw):
     cfg = pcfg_mod.PipelineConfig.tiny()
     cfg = dataclasses.replace(
         cfg, attribution=dataclasses.replace(cfg.attribution, layer=1))
-    model = init_blip_itm(cfg.model, capture_layer=0, device="cpu")
+    model = init_blip_itm(cfg.model, capture_layers=(0,), device="cpu")
     SegmentationRunner(cfg, model, device="cpu", **kw)
 
 

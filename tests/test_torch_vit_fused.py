@@ -212,7 +212,7 @@ def _configs(image_size: int):
                                 embed_dim=16, max_text_len=16)
     pcfg = pcfg_mod.ModelConfig(vit=pcfg_mod.ViTConfig(**vit_kw),
                                 bert=pcfg_mod.BertConfig(**bert_kw),
-                                max_text_len=16)
+                                embed_dim=16, max_text_len=16)
     return jcfg, pcfg
 
 
@@ -232,7 +232,7 @@ def encodes(request):
     tree = jax.tree.map(np.asarray, params)
     got = {}
     for fused in (True, False):
-        model = from_jax_params(tree, pcfg, capture_layer=0, device="cpu",
+        model = from_jax_params(tree, pcfg, capture_layers=(0,), device="cpu",
                                 vit_fused=fused)
         assert model.visual_encoder.fused == fused
         got[fused] = model.encode_image(torch.from_numpy(images)).numpy()
@@ -296,7 +296,7 @@ def pipelines():
                      bilateral_impl="pallas")
     want = jrun.run_batch(images, cap, rgb, return_maps=True, gt_sizes=gt)
     model = from_jax_params(jax.tree.map(np.asarray, params), pcfg.model,
-                            capture_layer=0, device="cpu")
+                            capture_layers=(0,), device="cpu")
     assert model.visual_encoder.fused
     prun = SegmentationRunner(pcfg, model, device="cpu", bucket_size=BUCKET)
     got = prun.run_batch(images, cap, rgb, return_maps=True, gt_sizes=gt)
@@ -353,7 +353,7 @@ def test_runner_at_grid_48_matches_jax_runner():
                      bilateral_impl="pallas").run_batch(
         images, cap, rgb, return_maps=True, gt_sizes=gt)
     model = from_jax_params(jax.tree.map(np.asarray, params), pcfg.model,
-                            capture_layer=0, device="cpu")
+                            capture_layers=(0,), device="cpu")
     got = SegmentationRunner(pcfg, model, device="cpu",
                              bucket_size=BUCKET).run_batch(
         images, cap, rgb, return_maps=True, gt_sizes=gt)
