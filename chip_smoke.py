@@ -20,7 +20,10 @@ Phases, each of which exits non-zero on failure:
    and at both Nystrom shapes, with its launch plan and two launches
    bit-equal; K7 at both sequence-parallel chunk shapes
    (sp = 2 at 336 and 768 px), bit-equal to K2's rows over the whole
-   sequence; K9 on [B, H, S, D] views at four shapes;
+   sequence; K9 on [B, H, S, D] views at four shapes; K2 also at the
+   CLIP scorer's shape (ViT-L/14 at 336 px: 8 images x 577 tokens, 16
+   heads of 64; also with keys masked past 535), a further entry of its
+   ``shapes``;
 4. reference: each branch of the CRF alone on the card against the CPU
    on one seeded scene (strided s=4 through K5 + K6, the general loop on
    K5's kernel for 66 state rows and for N = 1600, exact through K8,
@@ -33,7 +36,10 @@ Phases, each of which exits non-zero on failure:
    K8) and with 32 classes, whose 66 state rows take the general loop
    (K5); then the fused 192 px pipeline sequence-parallel over two
    spawned ranks that share the card through gloo (K1, K7, K3), against
-   the same two ranks on the CPU and the card's unsharded run;
+   the same two ranks on the CPU and the card's unsharded run; then a
+   narrow bf16 CLIP (168 px at patch 14, width 128, 2 layers each tower)
+   on the card against the CPU: ``encode_image`` (K2 once a layer) and
+   ``encode_text`` (no kernel);
 5. pipeline: four full-width runs of ``SegmentationRunner`` with random
    weights from a seeded ``torch.Generator`` (BLIP-ITM-Large, 4 drop
    rounds, bucket 192, blur + 10-iteration CRF): the reference default
@@ -73,7 +79,14 @@ Phases, each of which exits non-zero on failure:
    equal to the single-layer capture's within 1e-6 of the largest; one
    scorer call's ITC similarities on the card within 0.01 of the CPU's;
    K1 = K2 = K3 = 24 x the image encodes; seconds an image for the
-   ensemble and for each evaluation).
+   ensemble and for each evaluation); then ``cli.search --scorer clip``
+   on the same flags with ``--clip_checkpoint``, a full-width ViT-L/14-336
+   in OpenAI's layout drawn from a seed and written in half precision
+   (every loaded parameter equal to the file's; K1 = K3 = 24 x the BLIP
+   encodes, K2 = 24 x the BLIP and CLIP image encodes; every probability
+   row finite and summing to 1, every scorer call on the main thread; one
+   scorer call's CLIP similarities on the card within 0.01 of the CPU's;
+   seconds an image as run G's).
 
 The last four lines of output are the runs' img/s as JSON, one JSON
 object with every kernel's numbers, the card's name and power limit, and
@@ -285,7 +298,13 @@ def kernels_vs_plain(cfg):
             q, k, v, num_heads=h, true_len=s, out_dtype=torch.bfloat16), 5),
         bound_ms=bms, bound_by=by,
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh_, vh), 20)), nbytes)
+            qh, kh_, vh), 20),
+        shape=f"336 px BLIP ViT [{b}, {s}, {3 * hd}]"), nbytes)
+    k2 = rows["flash_mha_flat_qkv"]
+    keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err", "gb_per_s")
+    k2["shapes"] = [{key: r[key] for key in keys}
+                    for r in (k2, clip_flash_kernel(gen))]
 
     # K5 as the CRF calls it, once per image.
     feats_j, feats = crf_features(cfg, gen)
@@ -349,10 +368,66 @@ def kernels_vs_plain(cfg):
             *args, v=vv, c=c, out_dtype=torch.bfloat16), 5),
         bound_ms=bms, bound_by=by, library_ms=None), nbytes)
     for row in rows.values():
-        print(f"  {row['name']}: {row['ms']:.4f} ms (plain "
-              f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} by "
-              f"{row['bound_by']}, library {row['library_ms']})", flush=True)
+        for sh in row.get("shapes", [row]):
+            print(f"  {row['name']} {sh.get('shape', '')}: {sh['ms']:.4f} ms "
+                  f"(plain {sh['plain_ms']:.4f}, bound {sh['bound_ms']:.4f}"
+                  f" by {sh.get('bound_by', row['bound_by'])}, library "
+                  f"{sh['library_ms']})", flush=True)
     return rows
+
+
+# The CLIP scorer's batch: the 2K masked images (positives, then black
+# negatives) of an image with K = 4 classes, each one encode_image call.
+CLIP_SCORER_BATCH = 8
+
+
+def clip_flash_kernel(gen) -> dict:
+    """Phase 3 for K2 at the CLIP vision tower's shape (ViT-L/14 at 336
+    px: 24 x 24 + 1 = 577 tokens, 16 heads of 64), one launch per layer
+    over the scorer's batch: against its plain version within
+    ``TOL_FLASH``, also with ``true_len = S - 42`` (keys past it must not
+    leak into the rows before it, trap F3), then timed beside SDPA.
+    Returns the shape's entry of K2's ``shapes``."""
+    import torch
+    from torch.nn import functional as F
+
+    from pnp_ovss_tpu_torch.config import CLIPConfig
+    from pnp_ovss_tpu_torch.ops import flash_attention
+
+    v = CLIPConfig().vision
+    b, s, h, d = CLIP_SCORER_BATCH, v.num_patches + 1, v.num_heads, \
+        v.head_dim
+    hd = h * d
+    qkv = torch.randn((b, s, 3 * hd), generator=gen, device=gen.device) \
+        .to(torch.bfloat16)
+    q, k, vv = qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:]
+    err = 0.0
+    for tl in (s, s - 42):
+        out = flash_attention.flash_mha_flat_qkv(qkv, num_heads=h,
+                                                 true_len=tl)
+        ref = flash_attention.attention_plain(
+            q, k, vv, num_heads=h, true_len=tl, out_dtype=torch.float32)
+        e = (out[:, :tl].float() - ref[:, :tl]).abs().max().item()
+        check(f"flash_mha_flat_qkv CLIP [{b}, {s}, {3 * hd}] true_len={tl} "
+              "vs plain", e, TOL_FLASH)
+        err = e if tl == s else err
+    del out, ref
+    torch.cuda.synchronize()
+    qh, kh, vh = (x.view(b, s, h, d).transpose(1, 2) for x in (q, k, vv))
+    nbytes = qkv.numel() * 2 + b * s * hd * 2
+    bms, by = bound_ms(nbytes, 4.0 * b * h * s * s * d, BF16_FLOPS)
+    print(f"  flash_mha_flat_qkv CLIP: bound by bytes "
+          f"{1e3 * nbytes / HBM_BYTES_PER_S:.4f} ms, by operations "
+          f"{1e3 * 4.0 * b * h * s * s * d / BF16_FLOPS:.4f} ms", flush=True)
+    return with_rate(dict(
+        shape=f"336 px CLIP ViT-L/14 [{b}, {s}, {3 * hd}]", max_abs_err=err,
+        ms=time_ms(lambda: flash_attention.flash_mha_flat_qkv(
+            qkv, num_heads=h), 20),
+        plain_ms=time_ms(lambda: flash_attention.attention_plain(
+            q, k, vv, num_heads=h, true_len=s, out_dtype=torch.bfloat16), 5),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh), 20)), nbytes)
 
 
 # K8's shapes: (label, i-side, j-side, channels, signed values), with the
@@ -1045,6 +1120,77 @@ def reference_check(image_size: int, vit_fused: bool, settings: dict,
     hold(f"narrow {name} card vs CPU", card, cpu, max_rel, min_agree)
     print(f"    card launches {counts}", flush=True)
     return counts
+
+
+# Phase 4's narrow CLIP: max |card - CPU| of the unit-norm embeddings, in
+# bf16 on both sides, about twice the seeded H100 reading of the image
+# tower (0.00235; the text tower, which runs no kernel, read 3e-8).
+TOL_CLIP_NARROW = 5e-3
+
+
+def narrow_clip_config():
+    """A narrow bf16 CLIP: 168 px at patch 14 (145 tokens, so the vision
+    tower takes K2), width 128 with 2 heads of 64, 2 layers each tower,
+    the tiny text vocab and context."""
+    from pnp_ovss_tpu_torch.config import (
+        CLIPConfig, CLIPTextConfig, CLIPVisionConfig,
+    )
+
+    return CLIPConfig(
+        vision=CLIPVisionConfig(image_size=168, patch_size=14,
+                                hidden_size=128, num_layers=2, num_heads=2,
+                                embed_dim=64),
+        text=CLIPTextConfig(vocab_size=1024, context_length=16,
+                            hidden_size=128, num_layers=2, num_heads=2,
+                            embed_dim=64))
+
+
+def narrow_clip_inputs(cfg, seed: int = 1):
+    """CLIP-normalised-like images [4, H, W, 3] and the BPE ids of four
+    class names (toy merge table, under the tiny vocab)."""
+    import numpy as np
+    import torch
+
+    from pnp_ovss_tpu_torch.text.bpe import CLIPBPETokenizer
+
+    names = ["dog", "potted plant", "tv monitor", "sky"]
+    tok = CLIPBPETokenizer.toy([w for n in names for w in n.split()])
+    ids = tok.encode_batch(names, cfg.text.context_length)
+    rng = np.random.RandomState(seed)
+    size = cfg.vision.image_size
+    images = rng.randn(4, size, size, 3).astype(np.float32)
+    return torch.from_numpy(images), torch.from_numpy(ids).long()
+
+
+def narrow_clip_check() -> None:
+    """Phase 4: the narrow CLIP on the card against the same weights on
+    the CPU: ``encode_image`` (K2 once a layer, no other kernel) and
+    ``encode_text`` (the causal text tower: no kernel) within
+    ``TOL_CLIP_NARROW``."""
+    import torch
+
+    from pnp_ovss_tpu_torch.models.clip import init_clip
+    from pnp_ovss_tpu_torch.ops import _build
+
+    cfg = narrow_clip_config()
+    model = init_clip(cfg, seed=1, device="cuda")
+    images, ids = narrow_clip_inputs(cfg)
+    _build.reset_launch_counts()
+    img = model.encode_image(images.cuda()).cpu()
+    counts = launched_exactly("narrow CLIP encode_image",
+                              ("flash_mha_flat_qkv",))
+    if counts["flash_mha_flat_qkv"] != cfg.vision.num_layers:
+        raise SystemExit(f"FAIL: narrow CLIP encode_image launched {counts}")
+    _build.reset_launch_counts()
+    txt = model.encode_text(ids.cuda()).cpu()
+    launched_exactly("narrow CLIP encode_text", ())
+    model.cpu()
+    err_i = (img - model.encode_image(images)).abs().max().item()
+    err_t = (txt - model.encode_text(ids)).abs().max().item()
+    print(f"  narrow CLIP (168 px, width 128, 2 x 2 layers, bf16): "
+          f"encode_image launches {counts}", flush=True)
+    check("narrow CLIP encode_image card vs CPU", err_i, TOL_CLIP_NARROW)
+    check("narrow CLIP encode_text card vs CPU", err_t, TOL_CLIP_NARROW)
 
 
 def full_config(image_size: int = 336):
@@ -2043,8 +2189,212 @@ def search_check(tmp: str, data: str, card: str) -> tuple:
                         itc_err=itc_err)
 
 
+# Run H: the CLIP scorer's checkpoint, drawn from this seed.
+SEARCH_CLIP_SEED = 2
+_CLIP_BLOCK_KEYS = ("ln_1.weight", "ln_1.bias", "attn.in_proj_weight",
+                    "attn.in_proj_bias", "attn.out_proj.weight",
+                    "attn.out_proj.bias", "ln_2.weight", "ln_2.bias",
+                    "mlp.c_fc.weight", "mlp.c_fc.bias", "mlp.c_proj.weight",
+                    "mlp.c_proj.bias")
+
+
+def openai_clip_state_dict(cfg, seed: int) -> dict:
+    """A CLIP of ``cfg`` in OpenAI's checkpoint layout (the keys of
+    ``ViT-L-14-336px.pt``, ``logit_scale`` included), its weights drawn
+    on the card by ``init_clip`` from ``seed``, in half precision on the
+    host as OpenAI ships them."""
+    import torch
+
+    from pnp_ovss_tpu_torch.models.clip import init_clip
+    from pnp_ovss_tpu_torch.models.convert import clip_port_name
+
+    def norm(name):
+        return [f"{name}.weight", f"{name}.bias"]
+
+    def blocks(prefix, n):
+        return [f"{prefix}.resblocks.{i}.{k}" for i in range(n)
+                for k in _CLIP_BLOCK_KEYS]
+
+    keys = (["visual.conv1.weight", "visual.class_embedding",
+             "visual.positional_embedding"] + norm("visual.ln_pre")
+            + blocks("visual.transformer", cfg.vision.num_layers)
+            + norm("visual.ln_post") + ["visual.proj",
+                                        "token_embedding.weight",
+                                        "positional_embedding"]
+            + blocks("transformer", cfg.text.num_layers) + norm("ln_final")
+            + ["text_projection"])
+    port = init_clip(cfg, seed=seed, device="cuda").state_dict()
+    sd = {k: port[clip_port_name(k)].half().cpu() for k in keys}
+    sd["logit_scale"] = torch.tensor(4.6052, dtype=torch.float16)
+    return sd
+
+
+def search_clip_check(tmp: str, data: str, card: str) -> tuple:
+    """Run H: ``cli.search --scorer clip --n_iter 4 --limit 8`` at full
+    width with ``--clip_checkpoint``, a ViT-L/14-336 state dict in
+    OpenAI's layout drawn from ``SEARCH_CLIP_SEED`` (random BLIP weights
+    from seed 0, the ITM head scaled by ``SEARCH_ITM_SCALE`` as in run G).
+    Checks:
+
+    - K1 = K3 = 24 x the BLIP encodes (one ensemble an image), K2 = 24 x
+      (the BLIP encodes + the CLIP ``encode_image`` calls, one a scorer
+      call), every other kernel 0;
+    - every loaded CLIP parameter equal to the checkpoint's value in the
+      parameter's dtype;
+    - every probability row finite and summing to 1; every scorer call on
+      the main thread (F5);
+    - the cosine similarities of one scorer call (its first positive
+      images and its first negative one, before the / 0.01) on the card
+      within ``TOL_SEARCH_ITC`` of the same model's on the CPU, beside
+      their positive-vs-negative spread.
+
+    With random CLIP weights every reward may be 0, so no score is
+    required. Returns (its launches, its row of the pipeline line)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from pnp_ovss_tpu_torch.cli import search
+    from pnp_ovss_tpu_torch.config import CLIPConfig
+    from pnp_ovss_tpu_torch.models.blip_itm import BlipITM
+    from pnp_ovss_tpu_torch.models.clip import CLIPModel
+    from pnp_ovss_tpu_torch.models.convert import clip_port_name
+    from pnp_ovss_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    sd = openai_clip_state_dict(CLIPConfig(), SEARCH_CLIP_SEED)
+    path = os.path.join(tmp, "clip_vit_l14_336.pt")
+    torch.save(sd, path)
+    draw_s = time.perf_counter() - t0
+    n_params = sum(v.numel() for v in sd.values())
+
+    encodes, calls, probs, models, threads = [0], [], [], [], set()
+    real = (BlipITM.encode_image, CLIPModel.encode_image,
+            CLIPModel.encode_text, search.load_model, search.make_clip_scorer)
+    real_encode, real_image, real_text, real_load, real_scorer = real
+
+    def load(args, cfg, capture, device):
+        model = real_load(args, cfg, capture, device)
+        model.itm_head.weight.mul_(SEARCH_ITM_SCALE)
+        return model
+
+    def encode(self, images):
+        encodes[0] += 1
+        return real_encode(self, images)
+
+    def clip_image(self, images):
+        z = real_image(self, images)
+        calls.append(dict(images=images.cpu(), img_z=z.cpu()))
+        threads.add(threading.current_thread())
+        return z
+
+    def clip_text(self, ids):
+        z = real_text(self, ids)
+        calls[-1].update(ids=ids.cpu(), txt_z=z.cpu())
+        return z
+
+    def scorer(clip_model, bpe_tok, **kw):
+        models.append(clip_model)
+        fn = real_scorer(clip_model, bpe_tok, **kw)
+
+        def recording(images, texts):
+            p = fn(images, texts)
+            probs.append(p)
+            return p
+
+        return recording
+
+    (BlipITM.encode_image, CLIPModel.encode_image, CLIPModel.encode_text,
+     search.load_model, search.make_clip_scorer) = (
+        encode, clip_image, clip_text, load, scorer)
+    try:
+        summary, counts, dt = cli_run(
+            ["--data_type", "voc", "--home_dir", data, "--save_path",
+             os.path.join(tmp, "out_h"), "--scorer", "clip",
+             "--clip_checkpoint", path, "--n_iter", "4", "--limit",
+             str(SEARCH_IMAGES)], entry=search.main)
+    finally:
+        (BlipITM.encode_image, CLIPModel.encode_image,
+         CLIPModel.encode_text, search.load_model,
+         search.make_clip_scorer) = real
+    n, n_clip = encodes[0], len(calls)
+    want = dict.fromkeys(_build.LAUNCHES, 0)
+    want.update(ln_matmul=24 * n, ln_mlp_residual=24 * n,
+                flash_mha_flat_qkv=24 * (n + n_clip))
+    if (counts != want or n != SEARCH_IMAGES or len(models) != 1
+            or n_clip != SEARCH_IMAGES * len(summary["evaluation_s"])
+            or n_clip != len(probs) or n_clip == 0):
+        raise SystemExit(f"FAIL: CLIP search launched {counts} over {n} "
+                         f"BLIP encodes and {n_clip} CLIP scorer calls, "
+                         f"want {want}")
+    model = models[0]
+    loaded = model.state_dict()
+    for key, val in sd.items():
+        name = clip_port_name(key)
+        if key != "logit_scale" and not torch.equal(
+                loaded[name].cpu(), val.to(loaded[name].dtype)):
+            raise SystemExit(f"FAIL: CLIP parameter {name} differs from the "
+                             f"checkpoint's {key}")
+    if threads != {threading.main_thread()}:
+        raise SystemExit(f"FAIL: CLIP scorer calls ran on {threads}")
+    for p in probs:
+        if not (np.isfinite(p).all() and np.allclose(p.sum(-1), 1,
+                                                      atol=1e-5)):
+            raise SystemExit("FAIL: a CLIP probability row is not finite "
+                             "or does not sum to 1")
+
+    def spread(c):
+        sims = c["img_z"] @ c["txt_z"].T
+        k = c["ids"].shape[0]
+        return float((sims[:k] - sims[k:]).abs().max())
+
+    # The scorer call whose positives and negatives differ most; its
+    # first positive images and its first negative one, on the CPU.
+    c = max(calls, key=spread)
+    k = c["ids"].shape[0]
+    rows = list(range(min(k, 2))) + [k]
+    card_sims = c["img_z"][rows] @ c["txt_z"].T
+    model.cpu()
+    t0 = time.perf_counter()
+    cpu_sims = (model.encode_image(c["images"][rows])
+                @ model.encode_text(c["ids"]).T)
+    cpu_s = time.perf_counter() - t0
+    clip_err = float((cpu_sims - card_sims).abs().max())
+    clip_spread = float((card_sims - card_sims[-1]).abs().max())
+    del model, models[:], calls[:], sd, loaded
+    torch.cuda.empty_cache()
+    ens_s = summary["ensemble_s"]
+    eval_s = [t / SEARCH_IMAGES for t in summary["evaluation_s"]]
+    print(f"  run H (cli.search --scorer clip, --clip_checkpoint: OpenAI-"
+          f"layout ViT-L/14-336, {n_params / 1e6:.1f} M parameters in half "
+          f"precision, {os.path.getsize(path) / 1e9:.3f} GB, drawn and "
+          f"written in {draw_s:.1f} s; {SEARCH_IMAGES} images, 4 steps): "
+          f"{dt:.1f} s in main, best {summary['best']} score "
+          f"{summary['score']:.4f}, history "
+          f"{[round(sc, 4) for _, sc in summary['history']]}; every loaded "
+          f"parameter equal to the checkpoint's; {n_clip} scorer calls on "
+          f"the main thread, every probability row finite and summing to "
+          f"1; CLIP cosine similarities of {len(rows)} images x {k} texts, "
+          f"card vs CPU max diff {clip_err:.4g} (bar {TOL_SEARCH_ITC:g}; "
+          f"positive vs negative spread {clip_spread:.4g}; CPU "
+          f"{cpu_s:.1f} s); {n} BLIP encodes, launches {counts}; ensemble "
+          f"{[round(t, 4) for t in ens_s]} s an image, {len(eval_s)} "
+          f"(layer, head, min_att) evaluations "
+          f"{[round(t, 4) for t in eval_s]} s an image, on {card}",
+          flush=True)
+    if clip_err > TOL_SEARCH_ITC:
+        raise SystemExit("FAIL: the CLIP scorer on the card differs from "
+                         "the CPU")
+    return counts, dict(ensemble_s_per_image=ens_s,
+                        evaluation_s_per_image=eval_s, encodes=n,
+                        clip_scorer_calls=n_clip, score=summary["score"],
+                        clip_sims_err=clip_err, clip_sims_spread=clip_spread,
+                        clip_parameters=n_params)
+
+
 def parity_and_search_phase(card: str) -> tuple:
-    """Phase 7: runs E-G on phase 6's synthetic VOC set (the same seed)
+    """Phase 7: runs E-H on phase 6's synthetic VOC set (the same seed)
     and the gate, in a temporary directory deleted at the end. Returns
     ({run: launches}, {run: row of the pipeline line})."""
     import shutil
@@ -2060,6 +2410,8 @@ def parity_and_search_phase(card: str) -> tuple:
         launches["gate seed 0"], rows["gate seed 0"] = gate_check(card)
         launches["search 336 px ITC"], rows["search 336 px ITC"] = \
             search_check(tmp, data, card)
+        launches["search 336 px CLIP"], rows["search 336 px CLIP"] = \
+            search_clip_check(tmp, data, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return launches, rows
@@ -2119,6 +2471,7 @@ def main() -> int:
         counts = reference_check(*args)
         if "flash_mha" in args[3]:
             k9_counts = counts  # the one run whose path takes K9
+    narrow_clip_check()
     sp_narrow_check(run_sp(["narrow"]))
     print(f"  phase 4: {time.perf_counter() - t0:.1f} s", flush=True)
 

@@ -2,7 +2,8 @@
 port's counterpart of ``pnp_ovss_tpu/cli/search.py``):
 
     python -m pnp_ovss_tpu_torch.cli.search --data_type voc \\
-        --home_dir DATA --save_path OUT --scorer itc [--checkpoint x.pth]
+        --home_dir DATA --save_path OUT [--checkpoint x.pth] \\
+        [--clip_checkpoint ViT-L-14-336px.pt --clip_bpe bpe.txt.gz]
 
 Reference: script :1333-1412, a 34-iteration random-annealing search over
 {layer 1..12, head 0..11, min_att 0.05..0.45} maximising the positive-vs-
@@ -12,12 +13,16 @@ layer and head is captured in ONE forward and backward per image (the
 BERT captures all layers of ``--layer``), pooled per class and kept on the
 host; each configuration the search visits then scores its masked images.
 
-``--scorer itc`` scores with the BLIP ITC head of the same model (no other
-checkpoint; the model scores its own maps). ``--scorer clip``, the
-reference's independent CLIP ViT-L-14-336, is not ported yet (ROADMAP
-A7b) and raises ``SystemExit``. The model runs on the card unless
-``--device cpu``; the ViT encodes run the port's kernels (K1, K2 or K4,
-K3 with the fused block).
+``--scorer clip`` (the default) scores with the reference's independent
+CLIP ViT-L-14-336 (script :1370-1372; ``models/clip.py``, its vision
+tower's attention on kernel K2) and CLIP's BPE tokenizer
+(``text/bpe.py``): ``--clip_checkpoint`` / ``--clip_bpe`` name OpenAI's
+files; without them a tiny random CLIP and a toy BPE over the dataset's
+class words stand in (machinery runs only). ``--scorer itc`` scores with
+the BLIP ITC head of the same model (no other checkpoint; the model
+scores its own maps). The models run on the card unless ``--device
+cpu``; the ViT encodes run the port's kernels (K1, K2 or K4, K3 with the
+fused block).
 """
 
 from __future__ import annotations
@@ -74,6 +79,61 @@ def make_itc_scorer(model, *, device):
     return scorer
 
 
+def make_clip_scorer(clip_model, bpe_tok, *, image_size: int = 336,
+                     context_length: int = 77, device):
+    """The independent CLIP reward scorer (reference :1370-1372,
+    :156-175): (images [N, H, W, 3] CLIP-normalised, texts) -> probs [N,
+    len(texts)], the softmax over texts of (image embedding @ text
+    embedding) / 0.01. Images whose height is not ``image_size`` are
+    resized bilinearly with aligned corners first. Every device call runs
+    on the calling thread."""
+    from pnp_ovss_tpu_torch.ops.resize import resize_bilinear_align_corners
+
+    def scorer(images: np.ndarray, texts: List[str]) -> np.ndarray:
+        x = torch.as_tensor(np.asarray(images, np.float32), device=device)
+        if images.shape[1] != image_size:
+            x = resize_bilinear_align_corners(
+                x.permute(0, 3, 1, 2), image_size, image_size
+            ).permute(0, 2, 3, 1)
+        ids = torch.as_tensor(bpe_tok.encode_batch(texts, context_length),
+                              device=device).long()
+        img_z = clip_model.encode_image(x).cpu().numpy()
+        txt_z = clip_model.encode_text(ids).cpu().numpy()
+        sims = img_z @ txt_z.T / 0.01  # temperature (reference :170)
+        e = np.exp(sims - sims.max(-1, keepdims=True))
+        return e / e.sum(-1, keepdims=True)
+
+    return scorer
+
+
+def load_clip(args, class_names, device):
+    """The CLIP scorer's model and tokenizer: ``--clip_checkpoint`` at the
+    full ``CLIPConfig()``, else a tiny random CLIP from seed 1;
+    ``--clip_bpe``'s merge table, else a toy BPE over the class names'
+    words."""
+    from pnp_ovss_tpu_torch.config import CLIPConfig
+    from pnp_ovss_tpu_torch.text.bpe import CLIPBPETokenizer
+    from pnp_ovss_tpu_torch.utils.logging import log
+
+    if args.clip_checkpoint:
+        from pnp_ovss_tpu_torch.models.convert import load_clip_checkpoint
+
+        model = load_clip_checkpoint(args.clip_checkpoint, CLIPConfig(),
+                                     device=device)
+    else:
+        from pnp_ovss_tpu_torch.models.clip import init_clip
+
+        log("WARNING: --scorer clip without --clip_checkpoint; tiny "
+            "random CLIP (machinery smoke run only)")
+        model = init_clip(CLIPConfig.tiny(), seed=1, device=device)
+    if args.clip_bpe:
+        bpe = CLIPBPETokenizer.from_merges_file(args.clip_bpe)
+    else:
+        bpe = CLIPBPETokenizer.toy(
+            [w for n in class_names for w in n.replace(",", " ").split()])
+    return model, bpe
+
+
 def get_args_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         "pnp-ovss-tpu-torch search", description=__doc__,
@@ -93,12 +153,11 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--vocab", default=None)
     p.add_argument("--scorer", default="clip", choices=["clip", "itc"],
                    help="clip: the reference's independent CLIP ViT-L-14-"
-                        "336, not ported yet (ROADMAP A7b); itc: the BLIP "
-                        "ITC head of the same model")
+                        "336; itc: the BLIP ITC head of the same model")
     p.add_argument("--clip_checkpoint", default=None,
-                   help="CLIP checkpoint for --scorer clip (ROADMAP A7b)")
+                   help="OpenAI CLIP ViT-L/14-336px .pt for --scorer clip")
     p.add_argument("--clip_bpe", default=None,
-                   help="CLIP BPE vocab for --scorer clip (ROADMAP A7b)")
+                   help="CLIP bpe_simple_vocab_16e6.txt.gz path")
     p.add_argument("--tiny", action="store_true",
                    help="tiny model (machinery smoke runs and tests)")
     p.add_argument("--device", default="cuda",
@@ -144,10 +203,6 @@ def main(argv=None):
     each new configuration's evaluation over every image
     (``evaluation_s``)."""
     args = get_args_parser().parse_args(argv)
-    if args.scorer == "clip":
-        raise SystemExit("--scorer clip (the independent CLIP reward model "
-                         "and its BPE tokenizer) is not ported yet (ROADMAP "
-                         "A7b); use --scorer itc")
 
     from pnp_ovss_tpu_torch import resolve_device
     from pnp_ovss_tpu_torch.config import ModelConfig, ViTConfig
@@ -215,10 +270,17 @@ def main(argv=None):
         ensemble_s.append(time.perf_counter() - t0)
         cache[rec.img_id] = (pooled, cap.class_names[0], img)
 
-    itc_scorer = make_itc_scorer(model, device=device)
+    if args.scorer == "clip":
+        clip_model, bpe = load_clip(args, meta.nms, device)
+        c = clip_model.cfg
+        scorer = make_clip_scorer(
+            clip_model, bpe, image_size=c.vision.image_size,
+            context_length=c.text.context_length, device=device)
+    else:
+        itc_scorer = make_itc_scorer(model, device=device)
 
-    def scorer(images, texts):
-        return itc_scorer(images, texts, tok, cfg.max_text_len)
+        def scorer(images, texts):
+            return itc_scorer(images, texts, tok, cfg.max_text_len)
 
     provided = [0]  # configs scored afresh (not read from a memo file)
 

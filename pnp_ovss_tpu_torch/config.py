@@ -1,9 +1,10 @@
 """Configuration tree (the port's copy of ``pnp_ovss_tpu/config.py``).
 
-Only the dataclasses the segmentation path reads are kept. ``ViTConfig``
-and ``BertConfig`` keep every field of the JAX package's, so one converts
-to the other field for field; the other classes keep only the fields the
-path reads. Defaults are the reference's (Run_seg.sh):
+Only the dataclasses the port's paths read are kept. ``ViTConfig``,
+``BertConfig`` and the three CLIP classes keep every field of the JAX
+package's, so one converts to the other field for field; the other
+classes keep only the fields the path reads. Defaults are the
+reference's (Run_seg.sh):
 
 - drop count 10/round        (reference script ``save_len = 10`` at :643)
 - CRF constants              (reference script :1036-1041)
@@ -103,6 +104,75 @@ class ModelConfig:
             ),
             max_text_len=16,
             embed_dim=16,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPVisionConfig:
+    """OpenAI CLIP vision tower (ViT-L/14-336: the search's independent
+    reward model, reference script :1370-1372)."""
+
+    image_size: int = 336
+    patch_size: int = 14
+    hidden_size: int = 1024
+    num_layers: int = 24
+    num_heads: int = 16
+    mlp_ratio: float = 4.0
+    embed_dim: int = 768  # projection dim shared with the text tower
+    layer_norm_eps: float = 1e-5
+    dtype: str = "bfloat16"
+
+    @property
+    def grid(self) -> int:
+        return self.image_size // self.patch_size
+
+    @property
+    def num_patches(self) -> int:
+        return self.grid * self.grid
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPTextConfig:
+    """OpenAI CLIP text tower (causal transformer, BPE vocab 49408)."""
+
+    vocab_size: int = 49408
+    context_length: int = 77
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    mlp_ratio: float = 4.0
+    embed_dim: int = 768
+    layer_norm_eps: float = 1e-5
+    dtype: str = "bfloat16"
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPConfig:
+    """CLIP dual encoder (ViT-L-14-336 by default)."""
+
+    vision: CLIPVisionConfig = dataclasses.field(
+        default_factory=CLIPVisionConfig)
+    text: CLIPTextConfig = dataclasses.field(default_factory=CLIPTextConfig)
+
+    @classmethod
+    def tiny(cls) -> "CLIPConfig":
+        return cls(
+            vision=CLIPVisionConfig(
+                image_size=28, patch_size=14, hidden_size=32, num_layers=2,
+                num_heads=2, embed_dim=16, dtype="float32"),
+            text=CLIPTextConfig(
+                # Headroom over the toy BPE vocab (512 byte tokens + merges;
+                # an id past the table raises in the embedding).
+                vocab_size=1024, context_length=16, hidden_size=32,
+                num_layers=2, num_heads=2, embed_dim=16, dtype="float32"),
         )
 
 

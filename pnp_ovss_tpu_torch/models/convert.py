@@ -1,5 +1,5 @@
-"""Weights -> the port's ``BlipITM``: LAVIS BLIP-ITM torch checkpoints
-and the JAX package's parameter tree.
+"""Weights -> the port's ``BlipITM`` and ``CLIPModel``: LAVIS BLIP-ITM
+and OpenAI CLIP torch checkpoints, and the JAX package's parameter trees.
 
 ``from_lavis_state_dict`` / ``load_torch_checkpoint`` load a LAVIS BLIP-ITM
 state dict (e.g. model_large_retrieval_flickr.pth, blip_itm_large.yaml:10)
@@ -36,6 +36,23 @@ same weights:
   their names;
 - Dense kernels [in, out] are transposed to Linear weights [out, in], the
   HWIO patch conv becomes OIHW, LayerNorm ``scale`` becomes ``weight``.
+
+The CLIP reward model of the search (``models/clip.py``) loads the same
+two ways, the counterparts of the JAX package's ``convert_clip_state_dict``
+/ ``load_clip_checkpoint``:
+
+- ``from_openai_clip_state_dict`` / ``load_clip_checkpoint``: the OpenAI
+  layout (``ViT-L-14-336px.pt``: the ``visual.*`` tower with its fused
+  ``attn.in_proj_*``, ``transformer.resblocks.*``, ``token_embedding``,
+  ``positional_embedding``, ``ln_final``, ``text_projection``) by
+  renaming, no tensor transposed; the vision position embeddings are
+  resampled when their grid differs from the config's; ``logit_scale``
+  and the archive's size entries are dropped; any other key, a missing
+  one or a misfit shape raises and names the key. OpenAI ships the file
+  as a TorchScript archive, which ``torch.jit.load`` reads where
+  ``torch.load`` refuses it;
+- ``from_jax_clip_params``: the Flax tree of ``init_clip_params``, its
+  scanned ``blocks/block/*`` stacks split per layer.
 """
 
 from __future__ import annotations
@@ -47,8 +64,9 @@ import numpy as np
 import torch
 
 from pnp_ovss_tpu_torch import resolve_device
-from pnp_ovss_tpu_torch.config import ModelConfig
+from pnp_ovss_tpu_torch.config import CLIPConfig, ModelConfig
 from pnp_ovss_tpu_torch.models.blip_itm import BlipITM
+from pnp_ovss_tpu_torch.models.clip import CLIPModel
 from pnp_ovss_tpu_torch.models.vit import interpolate_pos_embed
 
 # LAVIS keys the port never reads (prefixes, substrings, exact names).
@@ -215,3 +233,115 @@ def from_jax_params(tree, cfg: ModelConfig, *,
     model.load_state_dict({k: torch.tensor(v) for k, v in flat.items()},
                           strict=True)
     return model.to(resolve_device(device)).requires_grad_(False).eval()
+
+
+# OpenAI CLIP keys the port never reads: the learned temperature (the
+# reference divides by a fixed 0.01) and the sizes the TorchScript archive
+# carries beside the weights.
+_CLIP_DROP = ("logit_scale", "input_resolution", "context_length",
+              "vocab_size")
+_CLIP_RENAMES = [(re.compile(a), b) for a, b in (
+    (r"^visual\.conv1\.", "visual.patch_embed."),
+    (r"^visual\.positional_embedding$", "visual.pos_embed"),
+    (r"^visual\.transformer\.resblocks\.", "visual.blocks."),
+    (r"^transformer\.resblocks\.", "text.blocks."),
+    (r"^token_embedding\.", "text.token_embedding."),
+    (r"^positional_embedding$", "text.pos_embed"),
+    (r"^(ln_final\.|text_projection$)", r"text.\1"),
+)]
+_CLIP_BLOCK_RENAMES = [(re.compile(a), b) for a, b in (
+    (r"\.attn\.in_proj_(weight|bias)$", r".qkv.\1"),
+    (r"\.attn\.out_proj\.", ".proj."),
+    (r"\.mlp\.(c_fc|c_proj)\.", r".\1."),
+)]
+
+
+def clip_port_name(key: str) -> str:
+    """An OpenAI CLIP state-dict key as the port's parameter name."""
+    for pattern, repl in _CLIP_RENAMES:
+        key, n = pattern.subn(repl, key)
+        if n:
+            break
+    for pattern, repl in _CLIP_BLOCK_RENAMES:
+        key = pattern.sub(repl, key)
+    return key
+
+
+def _clip_model(cfg: CLIPConfig, device) -> CLIPModel:
+    with torch.device(resolve_device(device)):
+        return CLIPModel(cfg)
+
+
+def from_openai_clip_state_dict(sd: Mapping[str, object], cfg: CLIPConfig,
+                                *, device="cuda") -> CLIPModel:
+    """An OpenAI CLIP state dict (tensors or numpy arrays, any float
+    dtype) -> the port's ``CLIPModel`` on ``device``, every tensor cast to
+    its parameter's dtype. Raises ``KeyError`` for a key the port cannot
+    place or a parameter no key fills, ``ValueError`` for a shape that
+    does not fit; each names the key."""
+    model = _clip_model(cfg, device)
+    want = model.state_dict()
+    port: Dict[str, torch.Tensor] = {}
+    for key, val in sd.items():
+        if key in _CLIP_DROP:
+            continue
+        name = clip_port_name(key)
+        if name not in want:
+            raise KeyError(f"CLIP checkpoint key {key!r} has no place in the "
+                           f"port's CLIPModel (read as {name!r})")
+        t = torch.as_tensor(val)
+        if name == "visual.pos_embed":
+            t = interpolate_pos_embed(t.float()[None],
+                                      cfg.vision.num_patches)[0]
+        if t.shape != want[name].shape:
+            raise ValueError(f"CLIP checkpoint key {key!r}: shape "
+                             f"{tuple(t.shape)} does not fit {name!r} "
+                             f"{tuple(want[name].shape)}")
+        port[name] = t
+    missing = sorted(set(want) - set(port))
+    if missing:
+        raise KeyError(f"CLIP checkpoint fills no value for {missing[:5]}"
+                       f"{' ...' if len(missing) > 5 else ''}")
+    model.load_state_dict(port, strict=True)
+    return model.requires_grad_(False).eval()
+
+
+def load_clip_checkpoint(path: str, cfg: CLIPConfig, *,
+                         device="cuda") -> CLIPModel:
+    """Load an OpenAI CLIP ``.pt`` (a TorchScript archive, as OpenAI ships
+    ``ViT-L-14-336px.pt``, or a plain state dict, or one under
+    ``"state_dict"`` / ``"model"``) on the CPU into the port's
+    ``CLIPModel`` on ``device``. Recent PyTorch hands a TorchScript
+    archive from ``torch.load`` to ``torch.jit.load`` itself; older
+    versions raise ``RuntimeError``, and then ``torch.jit.load`` reads
+    it."""
+    resolve_device(device)  # no card: raise before reading the file
+    try:
+        obj = torch.load(path, map_location="cpu", weights_only=False)
+    except RuntimeError:
+        obj = torch.jit.load(path, map_location="cpu")
+    if hasattr(obj, "state_dict"):
+        sd = obj.state_dict()
+    else:
+        sd = obj.get("state_dict", obj.get("model", obj))
+    return from_openai_clip_state_dict(sd, cfg, device=device)
+
+
+def from_jax_clip_params(tree, cfg: CLIPConfig, *,
+                         device="cuda") -> CLIPModel:
+    """``tree``: the JAX package's CLIP params (``{"params": {"visual":
+    ..., "text": ...}}`` or the inner dict) with numpy (or array-like)
+    leaves -> the port's ``CLIPModel`` on ``device``."""
+    p = tree["params"] if "params" in tree else tree
+    flat: Dict[str, np.ndarray] = {}
+    for tower, n in (("visual", cfg.vision.num_layers),
+                     ("text", cfg.text.num_layers)):
+        sub = dict(p[tower])
+        stacked = sub.pop("blocks")["block"]
+        _flatten(sub, f"{tower}.", flat)
+        for i in range(n):
+            _flatten(_index(stacked, i), f"{tower}.blocks.{i}.", flat)
+    model = _clip_model(cfg, device)
+    model.load_state_dict({k: torch.tensor(v) for k, v in flat.items()},
+                          strict=True)
+    return model.requires_grad_(False).eval()

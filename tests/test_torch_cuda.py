@@ -21,8 +21,10 @@ evaluation path on the card (``make_hist_fn`` over ragged batches against
 numpy, labels kept on the card by ``result(materialize_labels=False)``)
 and the tiny-width CLI on the card against the same run on the CPU; the
 synthetic postprocess gate's device side (strided s=4 and exact, bucket
-192) on the card against the CPU, and the search's all-layer GradCAM
-ensemble at odd text lengths.
+192) on the card against the CPU, the search's all-layer GradCAM
+ensemble at odd text lengths, K2 at the CLIP vision tower's 577 tokens
+(keys masked past 535 too) and the narrow CLIP's ``encode_image`` on the
+card against the CPU.
 """
 
 import dataclasses
@@ -939,3 +941,46 @@ def test_ensemble_gradcam_on_the_card_at_odd_text_lengths(cuda, text_len):
     assert (a - b).abs().max() <= 0.04 * b.abs().max()
     torch.testing.assert_close(logits.cpu(), want_logits, rtol=0.05,
                                atol=0.05)
+
+
+@pytest.mark.parametrize("true_len", [577, 535])
+def test_flash_kernel_at_the_clip_vision_shape(cuda, true_len):
+    """K2 at the CLIP scorer's shape (ViT-L/14 at 336 px: 8 images x 577
+    tokens, 16 heads of 64), whose ragged tail passes every key and query
+    tile; with keys masked past 535 no masked key may leak into a row
+    (trap F3). chip_smoke's ``TOL_FLASH``."""
+    import chip_smoke
+
+    gen = torch.Generator(device=cuda).manual_seed(577)
+    b, s, h, d = 8, 577, 16, 64
+    hd = h * d
+    qkv = _randn(gen, b, s, 3 * hd).to(torch.bfloat16)
+    _build.reset_launch_counts()
+    out = flash_attention.flash_mha_flat_qkv(qkv, num_heads=h,
+                                             true_len=true_len)
+    assert _build.LAUNCHES["flash_mha_flat_qkv"] == 1
+    ref = flash_attention.attention_plain(
+        qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:], num_heads=h,
+        true_len=true_len, out_dtype=torch.float32)
+    err = (out[:, :true_len].float() - ref[:, :true_len]).abs().max().item()
+    assert err <= chip_smoke.TOL_FLASH, err
+
+
+def test_narrow_clip_encode_image_on_the_card_matches_cpu(cuda):
+    """chip_smoke's narrow CLIP (168 px, width 128, 2 heads of 64, bf16):
+    ``encode_image`` on the card launches K2 once a layer and nothing
+    else, and agrees with the same weights on the CPU within chip_smoke's
+    ``TOL_CLIP_NARROW``."""
+    import chip_smoke
+    from pnp_ovss_tpu_torch.models.clip import init_clip
+
+    cfg = chip_smoke.narrow_clip_config()
+    model = init_clip(cfg, seed=3, device=cuda)
+    images, _ = chip_smoke.narrow_clip_inputs(cfg, seed=3)
+    _build.reset_launch_counts()
+    got = model.encode_image(images.to(cuda)).cpu()
+    assert {k: n for k, n in _build.LAUNCHES.items() if n} == \
+        {"flash_mha_flat_qkv": cfg.vision.num_layers}
+    want = model.cpu().encode_image(images)
+    assert torch.isfinite(got).all() and got.shape == (4, 64)
+    assert (got - want).abs().max().item() <= chip_smoke.TOL_CLIP_NARROW

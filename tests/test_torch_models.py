@@ -152,14 +152,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port stands alone: no ``jax`` and no
     ``pnp_ovss_tpu`` import anywhere in it, nor in the scripts that drive
     it on the card (``chip_smoke.py``, the port's profiling and timing
-    scripts and its synthetic postprocess gate)."""
+    scripts, its synthetic postprocess gate and its accuracy gate)."""
     files = sorted(PKG.rglob("*.py"))
     assert len(files) > 10
     assert PKG / "parallel" / "sequence.py" in files
     assert PKG / "cli" / "segment.py" in files
     for new in ("ops/host_post.py", "ops/crf_host.py", "cli/search.py",
                 "cli/token_contrast.py", "search/reward.py",
-                "search/optimizer.py"):
+                "search/optimizer.py", "models/clip.py", "text/bpe.py",
+                "cli/labeler.py"):
         assert PKG / new in files, new
     repo = PKG.parent
     card_scripts = [repo / "chip_smoke.py",
@@ -167,7 +168,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                     repo / "scripts" / "kernel_ablation.py",
                     repo / "scripts" / "time_k8.py",
                     repo / "scripts" / "time_host_post.py",
-                    repo / "scripts" / "synthetic_postprocess_gate_torch.py"]
+                    repo / "scripts" / "synthetic_postprocess_gate_torch.py",
+                    repo / "scripts" / "accuracy_gate_torch.py"]
     assert all(p.exists() for p in card_scripts)
     for path in files + card_scripts:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

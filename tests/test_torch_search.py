@@ -4,10 +4,12 @@ The annealer's visited sequence for a seed, token contrast, the positive
 masks, the pos-win reward and ``RewardEvaluator`` with its memo files
 (``tests/test_search.py``'s cases, each also held against the JAX
 function on the same seeded inputs), then both search CLIs and both
-token-contrast CLIs end to end at ``--tiny --scorer itc`` on one tiny
-LAVIS-layout checkpoint (``--checkpoint``, so both packages score with the
-same weights) over a synthetic VOC directory: the same best config, the
-same visited configs, scores within 1e-5.
+token-contrast CLIs end to end at ``--tiny`` on one tiny LAVIS-layout
+checkpoint (``--checkpoint``, so both packages score with the same
+weights) over a synthetic VOC directory, with ``--scorer itc`` and with
+``--scorer clip`` (both packages' random tiny CLIP replaced by one seeded
+OpenAI-layout state dict): the same best config, the same visited
+configs, scores and memo files within 1e-5.
 """
 
 import json
@@ -19,17 +21,23 @@ import pytest
 import torch
 
 from chip_smoke import write_fake_voc
+from pnp_ovss_tpu import config as jcfg_mod
 from pnp_ovss_tpu.cli import search as jax_search_cli
 from pnp_ovss_tpu.cli import token_contrast as jax_tc_cli
+from pnp_ovss_tpu.models import clip as jax_clip
+from pnp_ovss_tpu.models.convert import convert_clip_state_dict
 from pnp_ovss_tpu.search import reward as jax_reward
 from pnp_ovss_tpu_torch.cli import search as search_cli
 from pnp_ovss_tpu_torch.cli import token_contrast as tc_cli
+from pnp_ovss_tpu_torch.models import clip as port_clip
+from pnp_ovss_tpu_torch.models.convert import from_openai_clip_state_dict
 from pnp_ovss_tpu_torch.search.optimizer import (
     RandomAnnealingOptimizer, SearchSpace, run_search,
 )
 from pnp_ovss_tpu_torch.search.reward import (
     RewardEvaluator, build_pos_masks, pos_win_reward, token_contrast,
 )
+from tests.test_clip import _tiny_clip_state_dict
 from tests.test_torch_cli import _checkpoint
 
 
@@ -170,17 +178,39 @@ def voc(tmp_path_factory):
                 ckpt=_strong_checkpoint(root))
 
 
-def _search_args(voc, out, mode):
+def _search_args(voc, out, mode, scorer):
     return ["--data_type", "voc", "--home_dir", voc["home"], "--save_path",
             str(voc["root"] / out), "--tiny", "--layer", "1-2", "--n_iter",
-            "5", "--limit", "3", "--scorer", "itc", "--checkpoint",
+            "5", "--limit", "3", "--scorer", scorer, "--checkpoint",
             voc["ckpt"], "--search", mode]
 
 
+def _one_clip(monkeypatch):
+    """Both CLIs' tiny random CLIP replaced by one OpenAI-layout state dict
+    (without ``--clip_checkpoint`` both build ``CLIPConfig.tiny()``; with
+    it, the full ViT-L). Its token embeddings are scaled by 0.1, so that
+    the softmax at temperature 0.01 does not saturate and the masked
+    images' rewards are not all 0."""
+    sd = _tiny_clip_state_dict(jcfg_mod.CLIPConfig.tiny(),
+                               np.random.RandomState(9))
+    sd["token_embedding.weight"] *= 0.1
+    monkeypatch.setattr(jax_clip, "init_clip_params",
+                        lambda rng, cfg: convert_clip_state_dict(sd, cfg))
+    monkeypatch.setattr(
+        port_clip, "init_clip",
+        lambda cfg, seed, device: from_openai_clip_state_dict(
+            sd, cfg, device=device))
+
+
+@pytest.mark.parametrize("scorer", ["itc", "clip"])
 @pytest.mark.parametrize("mode", ["Wsupervised", "Unsupervised"])
-def test_search_cli_matches_the_jax_cli(voc, mode):
-    best, score = jax_search_cli.main(_search_args(voc, f"jax_{mode}", mode))
-    got = search_cli.main(_search_args(voc, f"port_{mode}", mode) +
+def test_search_cli_matches_the_jax_cli(voc, mode, scorer, monkeypatch):
+    if scorer == "clip":
+        _one_clip(monkeypatch)
+    tag = f"{scorer}_{mode}"
+    best, score = jax_search_cli.main(
+        _search_args(voc, f"jax_{tag}", mode, scorer))
+    got = search_cli.main(_search_args(voc, f"port_{tag}", mode, scorer) +
                           ["--device", "cpu"])
     assert got["best"] == best
     assert got["score"] == pytest.approx(score, rel=1e-5, abs=1e-6)
@@ -190,8 +220,17 @@ def test_search_cli_matches_the_jax_cli(voc, mode):
         assert any(s > 0 for _, s in got["history"])
     assert 1 <= len(got["evaluation_s"]) <= 5
     memo = f"Search_{mode}_voc"
-    assert sorted(os.listdir(voc["root"] / f"port_{mode}" / memo)) == \
-        sorted(os.listdir(voc["root"] / f"jax_{mode}" / memo))
+    port_dir = voc["root"] / f"port_{tag}" / memo
+    jax_dir = voc["root"] / f"jax_{tag}" / memo
+    assert sorted(os.listdir(port_dir)) == sorted(os.listdir(jax_dir))
+    for sub in os.listdir(jax_dir):
+        for name in os.listdir(jax_dir / sub):
+            a = json.loads((port_dir / sub / name).read_text())
+            b = json.loads((jax_dir / sub / name).read_text())
+            assert sorted(a) == sorted(b)
+            np.testing.assert_allclose([a[k] for k in sorted(a)],
+                                       [b[k] for k in sorted(b)],
+                                       rtol=1e-5, atol=1e-6)
 
 
 def test_token_contrast_cli_matches_the_jax_cli(voc):
@@ -208,8 +247,17 @@ def test_token_contrast_cli_matches_the_jax_cli(voc):
     assert saved == got
 
 
-def test_clip_scorer_waits_for_a7b(voc, tmp_path):
-    args = _search_args(voc, "clip", "Wsupervised")
-    args[args.index("itc")] = "clip"
-    with pytest.raises(SystemExit, match="A7b"):
-        search_cli.main(args + ["--device", "cpu"])
+def test_search_cli_default_scorer_without_a_card_raises(voc, tmp_path,
+                                                        monkeypatch):
+    """``--scorer clip`` is the default and runs; without a card and
+    without ``--device cpu`` the CLI raises naming cuda, as every entry
+    point does, and so does a CLIP built for the default device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = _search_args(voc, "no_card", "Wsupervised", "itc")
+    args = args[:args.index("--scorer")] + args[args.index("--scorer") + 2:]
+    assert search_cli.get_args_parser().parse_args(args).scorer == "clip"
+    with pytest.raises(RuntimeError, match="cuda"):
+        search_cli.main(args)
+    with pytest.raises(RuntimeError, match="cuda"):
+        port_clip.init_clip(port_clip.CLIPConfig.tiny())
+    assert not (voc["root"] / "no_card").exists()
