@@ -86,7 +86,25 @@ Phases, each of which exits non-zero on failure:
    encodes, K2 = 24 x the BLIP and CLIP image encodes; every probability
    row finite and summing to 1, every scorer call on the main thread; one
    scorer call's CLIP similarities on the card within 0.01 of the CPU's;
-   seconds an image as run G's).
+   seconds an image as run G's);
+8. data, tensor and pipeline parallelism (``parallel/``), every rank a
+   spawned process sharing the card through gloo (NCCL refuses two ranks
+   on one device), so every wall time is transport, no speed result: two
+   ranks (data 1 x model 2) run the narrow 192 px fused pipeline under
+   TP (one local head: K9; against the ranks' CPU run and the card's
+   unsharded run, at five seeds) and under PP (equal to the unsharded
+   run), then the reference default under TP (K1 = 192, K2' = 96, K3 =
+   0 a rank; the timed runner's round-0 encode and GradCAM no further
+   from the unsharded runner's than the unfused runner's, its labels
+   within that yardstick) and under PP (pp 2, M 5:
+   K1 = K2 = K3 = 240 a rank; equal to phase 5's run), each printing
+   its parameter bytes and peak memory a rank; the CLI with
+   ``--distributed --mesh --eval_at_bucket --device cuda:0`` on two
+   ranks (torchrun's environment) over phase 6's synthetic set (every
+   per-image hist equal to phase 6's single-process run's, both ranks'
+   totals their sum, one synchronised average); and
+   ``entry.dryrun_multichip(4)``. Phase 3 also holds K2' (a TP rank's
+   8 heads, strided views) against its plain version and K2's heads.
 
 The last four lines of output are the runs' img/s as JSON, one JSON
 object with every kernel's numbers, the card's name and power limit, and
@@ -98,7 +116,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import socket
 import subprocess
 import sys
 import time
@@ -118,6 +135,7 @@ GT_SIZES = ((500, 375), (375, 500))  # VOC-like (H, W), alternating
 # batches of the full-width run, whose wall time is gloo's transport.
 SP = 2
 SP_BATCHES = 1
+RANKS_TIMEOUT_S = 600  # a spawn of ranks that outlasts this is killed
 
 
 def card_line() -> str:
@@ -305,6 +323,39 @@ def kernels_vs_plain(cfg):
             "max_abs_err", "gb_per_s")
     k2["shapes"] = [{key: r[key] for key in keys}
                     for r in (k2, clip_flash_kernel(gen))]
+
+    # K2' as tensor parallelism calls it (tp = 2): rank 1's 8 heads, the
+    # strided column views [512:1024] of q, k and v in the replicated qkv.
+    hl = h // 2
+    lo, w = hl * d, hl * d
+    ql, kl, vl = (qkv[..., i * hd + lo:i * hd + lo + w] for i in range(3))
+    out_l = flash_attention.flash_mha_flat(ql, kl, vl, num_heads=hl)
+    ref_l = flash_attention.attention_plain(ql, kl, vl, num_heads=hl,
+                                            true_len=s,
+                                            out_dtype=torch.float32)
+    err_l = (out_l.float() - ref_l).abs().max().item()
+    check("flash_mha_flat (a TP rank's heads) vs plain", err_l, 5e-3)
+    check("flash_mha_flat (a TP rank's heads) vs K2's same heads",
+          (out_l.float() - out[..., lo:lo + w].float()).abs().max().item(),
+          0.0)
+    qlh, klh, vlh = (x.view(b, s, hl, d).transpose(1, 2)
+                     for x in (ql, kl, vl))
+    nbytes = 4 * b * s * w * 2
+    bms, by = bound_ms(nbytes, 4.0 * b * hl * s * s * d, BF16_FLOPS)
+    rows["flash_mha_flat"] = with_rate(dict(
+        name="flash_mha_flat", route="cuda",
+        source="pnp_ovss_tpu_torch/csrc/flash_attention.cu",
+        replaces="pnp_ovss_tpu/ops/flash_attention.py:260",
+        max_abs_err=err_l,
+        ms=time_ms(lambda: flash_attention.flash_mha_flat(
+            ql, kl, vl, num_heads=hl), 20),
+        plain_ms=time_ms(lambda: flash_attention.attention_plain(
+            ql, kl, vl, num_heads=hl, true_len=s,
+            out_dtype=torch.bfloat16), 5),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qlh, klh, vlh), 20),
+        shape=f"336 px TP rank [{b}, {s}, {hl} of {h} heads]"), nbytes)
 
     # K5 as the CRF calls it, once per image.
     feats_j, feats = crf_features(cfg, gen)
@@ -1073,21 +1124,21 @@ def hold(name: str, a: dict, b: dict, max_rel: float,
         raise SystemExit(f"FAIL: {name} disagree")
 
 
-def narrow_run(cfg, device: str, vit_fused: bool = True, sp_group=None):
+def narrow_run(cfg, device: str, vit_fused: bool = True, seed: int = 1,
+               **parallel):
     """One batch of the narrow pipeline (weights drawn on the card from
-    seed 1, inputs from seed 1) on ``device``: its ``summary`` and the
-    kernel launches it made."""
+    ``seed``, inputs from ``seed``) on ``device``: its ``summary`` and the
+    kernel launches it made. ``parallel``: the runner's ``mesh``,
+    ``encode_parallel`` and ``pp_microbatches``."""
     from pnp_ovss_tpu_torch.models.blip_itm import init_blip_itm
     from pnp_ovss_tpu_torch.ops import _build
     from pnp_ovss_tpu_torch.pipeline.runner import SegmentationRunner
 
-    images, cap, rgb, gt = synthetic_batch(cfg, 4, 64, seed=1)
-    model = init_blip_itm(cfg.model, capture_layers=(0,), seed=1,
+    images, cap, rgb, gt = synthetic_batch(cfg, 4, 64, seed=seed)
+    model = init_blip_itm(cfg.model, capture_layers=(0,), seed=seed,
                           device="cuda", vit_fused=vit_fused).to(device)
-    runner = SegmentationRunner(
-        cfg, model, device=device, bucket_size=64,
-        encode_parallel=None if sp_group is None else "sp",
-        sp_group=sp_group)
+    runner = SegmentationRunner(cfg, model, device=device, bucket_size=64,
+                                **parallel)
     _build.reset_launch_counts()
     res = runner.run_batch(images, cap, rgb, return_maps=True, gt_sizes=gt)
     return summary(res), dict(_build.LAUNCHES)
@@ -1209,12 +1260,13 @@ def full_config(image_size: int = 336):
 
 
 def pipeline_setup(seed: int = 0, *, image_size: int = 336,
-                   vit_fused: bool = True, post=None, sp_group=None):
+                   vit_fused: bool = True, post=None, **parallel):
     """A full-width runner on the card with random weights from ``seed``
     (by default the reference default: 336 px, batch 35, fused ViT,
-    strided s=4 CRF; ``post`` replaces postprocess settings; with
-    ``sp_group`` the encode is sequence-parallel over it), and one batch
-    of synthetic inputs (images, captions, bucket RGB, GT sizes)."""
+    strided s=4 CRF; ``post`` replaces postprocess settings; ``parallel``:
+    the runner's ``mesh``, ``encode_parallel`` and ``pp_microbatches``),
+    and one batch of synthetic inputs (images, captions, bucket RGB, GT
+    sizes)."""
     from pnp_ovss_tpu_torch.models.blip_itm import init_blip_itm
     from pnp_ovss_tpu_torch.pipeline.runner import SegmentationRunner
 
@@ -1224,10 +1276,8 @@ def pipeline_setup(seed: int = 0, *, image_size: int = 336,
     model = init_blip_itm(cfg.model,
                           capture_layers=(cfg.attribution.layer - 1,),
                           seed=seed, device="cuda", vit_fused=vit_fused)
-    runner = SegmentationRunner(
-        cfg, model, device="cuda", bucket_size=BUCKET,
-        encode_parallel=None if sp_group is None else "sp",
-        sp_group=sp_group)
+    runner = SegmentationRunner(cfg, model, device="cuda",
+                                bucket_size=BUCKET, **parallel)
     return cfg, runner, synthetic_batch(cfg, cfg.batch_size, BUCKET, seed)
 
 
@@ -1270,8 +1320,8 @@ def expected_launches(cfg, vit_kernels, bucket: int = BUCKET) -> dict:
     from pnp_ovss_tpu_torch.ops.crf import _MATERIALIZE_LIMIT
 
     want = dict.fromkeys(_build.LAUNCHES, 0)
-    for name in vit_kernels:
-        want[name] = cfg.model.vit.num_layers * cfg.drop.num_rounds
+    for name in vit_kernels:  # a kernel named twice launches twice
+        want[name] += cfg.model.vit.num_layers * cfg.drop.num_rounds
     pp, b = cfg.postprocess, cfg.batch_size
     s, iters = pp.bilateral_subsample, pp.crf.num_iters
     nystrom = pp.bilateral_mode == "nystrom" and s > 1
@@ -1333,27 +1383,61 @@ def run_pipeline(cfg, runner, inputs, per_batch: dict,
     return counts, batch * n_batches / dt, summary(res)
 
 
-def sp_narrow(sp) -> dict:
+def capture_round0(runner, on: bool = True) -> tuple:
+    """While ``on``, spies on ``runner``'s next batch: its round-0 ViT
+    encode (a forward hook on the model's visual encoder) and its round-0
+    GradCAM of the attribution head (through the runner module's
+    ``gradcam_from_embeds``), both as f32 on the host. Returns (the record,
+    a function that removes the spies)."""
+    from pnp_ovss_tpu_torch.pipeline import runner as runner_mod
+
+    rec = {}
+    if not on:
+        return rec, lambda: None
+    real = runner_mod.gradcam_from_embeds
+    head = runner.cfg.attribution.head
+
+    def spy(*args, **kw):
+        gc, logits = real(*args, **kw)
+        if "gradcam" not in rec:
+            rec["gradcam"] = gc[0, :, head].float().cpu()
+        return gc, logits
+
+    def hook(_module, _inputs, out):
+        if "encode" not in rec:
+            rec["encode"] = out.float().cpu()
+
+    handle = runner.model.visual_encoder.register_forward_hook(hook)
+    runner_mod.gradcam_from_embeds = spy
+
+    def remove():
+        handle.remove()
+        runner_mod.gradcam_from_embeds = real
+    return rec, remove
+
+
+def sp_narrow(mesh) -> dict:
     """Phase 4 on one rank: the narrow 192 px fused pipeline split over
-    the group, on the card (with its launches) and on the CPU."""
+    the mesh's model axis, on the card (with its launches) and on the
+    CPU."""
     cfg = narrow_config(192)
-    card, counts = narrow_run(cfg, "cuda", sp_group=sp)
-    cpu, _ = narrow_run(cfg, "cpu", sp_group=sp)
+    card, counts = narrow_run(cfg, "cuda", mesh=mesh, encode_parallel="sp")
+    cpu, _ = narrow_run(cfg, "cpu", mesh=mesh, encode_parallel="sp")
     return dict(cuda=card, cpu=cpu, launches=counts)
 
 
-def sp_full(sp) -> dict:
-    """Phase 5 on one rank: the reference default split over the group,
-    through ``run_pipeline`` (a checked warm-up batch, then timed batches
-    whose launches it asserts)."""
-    cfg, runner, inputs = pipeline_setup(sp_group=sp)
+def sp_full(mesh) -> dict:
+    """Phase 5 on one rank: the reference default split over the mesh's
+    model axis, through ``run_pipeline`` (a checked warm-up batch, then
+    timed batches whose launches it asserts)."""
+    cfg, runner, inputs = pipeline_setup(mesh=mesh, encode_parallel="sp")
     counts, img_s, res = run_pipeline(cfg, runner, inputs,
                                       expected_launches(cfg, _VIT_SP),
                                       SP_BATCHES)
     return dict(launches=counts, img_s=img_s, **res)
 
 
-def sp_encode_768(sp) -> dict:
+def sp_encode_768(mesh) -> dict:
     """Phase 5 on one rank: one sequence-parallel encode of bench.py's
     768 px leg with its launches and wall time; rank 0 also runs the
     unsharded encode (K4) and returns the difference."""
@@ -1375,11 +1459,11 @@ def sp_encode_768(sp) -> dict:
     torch.cuda.synchronize()
     _build.reset_launch_counts()
     t0 = time.perf_counter()
-    emb = encode_images_sp(model.visual_encoder, images, sp)
+    emb = encode_images_sp(model.visual_encoder, images, mesh.model_axis)
     torch.cuda.synchronize()
     out = dict(seconds=time.perf_counter() - t0, launches=dict(_build.LAUNCHES),
                shape=tuple(emb.shape), finite=bool(torch.isfinite(emb).all()))
-    if sp.rank == 0:
+    if mesh.rank == 0:
         ref = model.encode_image(images).float()
         diff = (emb.float() - ref).abs()
         out.update(max_abs=diff.max().item(), mean_abs=diff.mean().item(),
@@ -1390,42 +1474,42 @@ def sp_encode_768(sp) -> dict:
 SP_JOBS = {"narrow": sp_narrow, "full": sp_full, "encode_768": sp_encode_768}
 
 
-def sp_rank(rank: int, init_method: str, jobs, out_dir: str) -> None:
-    """One spawned rank of the sequence-parallel runs: joins the group
-    (both ranks on the one card, so gloo), runs ``jobs`` of ``SP_JOBS`` in
-    order and saves their results for the parent."""
+def mesh_rank(rank: int, init_method: str, table: str, jobs,
+              out_dir: str) -> None:
+    """One spawned rank of the multi-rank runs: joins a data 1 x model 2
+    mesh (both ranks on the one card, so gloo), runs ``jobs`` of the job
+    table named ``table`` (``SP_JOBS``, ``MP_JOBS``) in order and saves
+    their results for the parent."""
     import torch
 
     from pnp_ovss_tpu_torch.parallel.mesh import make_mesh_2d
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    sp = make_mesh_2d(SP, ["cuda:0"] * SP, rank=rank, init_method=init_method)
+    mesh = make_mesh_2d(SP, ["cuda:0"] * SP, rank=rank,
+                        init_method=init_method)
     try:
-        out = {job: SP_JOBS[job](sp) for job in jobs}
+        out = {job: globals()[table][job](mesh) for job in jobs}
     finally:
         torch.distributed.destroy_process_group()
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
 
 
-def run_sp(jobs) -> list:
-    """``jobs`` on ``SP`` ranks spawned with the spawn start method; a
-    rank that fails makes this raise. Returns each rank's {job: result}."""
+def run_ranks(jobs, table: str = "SP_JOBS") -> list:
+    """``jobs`` of ``table`` on ``SP`` ranks spawned with the spawn start
+    method; a rank that fails (or a run past ``RANKS_TIMEOUT_S``) makes
+    this raise. Returns each rank's {job: result}."""
     import torch
-    from torch import multiprocessing as mp
 
     from pnp_ovss_tpu_torch.ops import _build
+    from pnp_ovss_tpu_torch.parallel.mesh import free_port, spawn
 
     out_dir = _build.BUILD_DIR.parent / "sp_ranks"
     out_dir.mkdir(parents=True, exist_ok=True)
     for r in range(SP):
         (out_dir / f"rank{r}.pt").unlink(missing_ok=True)
-    with socket.socket() as sock:  # a free port for the rendezvous
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    mp.start_processes(sp_rank, args=(f"tcp://localhost:{port}", jobs,
-                                      str(out_dir)),
-                       nprocs=SP, start_method="spawn")
+    spawn(mesh_rank, SP, (f"tcp://localhost:{free_port()}", table, jobs,
+                          str(out_dir)), timeout_s=RANKS_TIMEOUT_S)
     return [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
             for r in range(SP)]
 
@@ -1813,6 +1897,7 @@ def cli_eval_at_bucket(tmp: str, data: str) -> None:
     print(f"  run C (--eval_at_bucket): {rows} device hists (pad rows "
           f"included) equal numpy fast_hist exactly; {CLI_IMAGES} files a "
           "variant, run totals equal their sums", flush=True)
+    return hists
 
 
 def cli_checkpoint(tmp: str, data: str) -> None:
@@ -1898,7 +1983,8 @@ def cli_checkpoint(tmp: str, data: str) -> None:
 
 def cli_phase(card: str) -> tuple:
     """Phase 6: the CLI's runs A-D in a temporary directory, deleted at
-    the end. Returns (run A's launches, its row of the pipeline line)."""
+    the end. Returns (run A's launches, its row of the pipeline line, run
+    C's per-image bucket hists)."""
     import shutil
     import tempfile
 
@@ -1907,14 +1993,14 @@ def cli_phase(card: str) -> tuple:
         data = os.path.join(tmp, "voc")
         sizes = write_fake_voc(data, CLI_IMAGES)
         launches, row = cli_defaults(tmp, data, sizes, card)
-        cli_eval_at_bucket(tmp, data)
+        bucket_hists = cli_eval_at_bucket(tmp, data)
         cli_checkpoint(tmp, data)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return launches, row | dict(
         note="python -m pnp_ovss_tpu_torch.cli.segment defaults over two "
              "full batches: JPEG decode, host finalize and file writes "
-             "included")
+             "included"), bucket_hists
 
 
 # Phase 7: the host parity CLI, the synthetic postprocess gate, the search.
@@ -2417,6 +2503,370 @@ def parity_and_search_phase(card: str) -> tuple:
     return launches, rows
 
 
+# Phase 8: data, tensor and pipeline parallelism. Two ranks share the card
+# through gloo (NCCL refuses two ranks on one device), so every wall time
+# here is gloo's transport on one card, no speed result.
+PP_MICROBATCHES = 5  # batch 35: the default M = pp = 2 does not divide it
+NARROW_PP_M = 2
+# Under TP a fused layer runs K1 twice (the replicated qkv; LN2 + the
+# fc1 column slab) and no K3.
+TP_NARROW = ("ln_matmul", "ln_matmul", "flash_mha")  # one local head: K9
+TP_FULL = ("ln_matmul", "ln_matmul", "flash_mha_flat")  # 8 local heads: K2'
+# Bars of the tensor-parallel runs. TP rounds where the unsharded run
+# rounds, but its sums run in other orders: the row-parallel proj and
+# mlp_fc2 are summed over the ranks, and LN2 + fc1 run in K1 where the
+# unsharded block runs K3 (tests/test_torch_tensor_parallel.py holds TP
+# to 1e-5 of JAX in f32). At full width, with random weights and noise
+# images, any such change moves about half the labels: the port's own
+# unfused block on the same weights agrees with the fused run on 52% /
+# 71% of the labels r0 / agg. An image's class maps lie within about 1%
+# of each other, and the CRF settles those near ties into confident
+# labels either way, so neither a margin nor a rescaled head makes the
+# labels decisive (scripts/tp_label_study_torch.py; PERF.md, PR 12), and
+# the JAX package's 0.1% label bar cannot tell a faulty TP from a right
+# one here. The runner's own round-0 encode and GradCAM can: a lost
+# reduce or a wrong head slab moves them by orders of magnitude. So the
+# timed TP runner's (``capture_round0``) are held to TP_YARDSTICK times
+# the unfused runner's differences from the unsharded runner's, measured
+# in the same run; its labels and map sums to the unfused run's agreement
+# within TP_LABEL_MARGIN and TP_YARDSTICK. The narrow TP run against the
+# CPU is held at each of TP_SEEDS to TP_VS_CPU: its labels' bar leaves
+# 1.5x the worst disagreement of the five seeded H100 readings (seed 1:
+# 0.0335 / 0.9598 / 0.9753, where the unsharded fused run reads 0.9641
+# r0), its sums' bar 1.26x. The pipeline-parallel runs compute each row
+# as the unsharded run does: equality.
+TP_YARDSTICK = 1.5
+TP_LABEL_MARGIN = 0.05
+TP_VS_CPU = (0.042, 0.94)
+TP_SEEDS = (1, 2, 3, 4, 5)
+
+
+def expected_pp_launches(cfg, pp: int, m: int, bucket: int = BUCKET) -> dict:
+    """Per-rank launches of a pipeline-parallel batch: each stage runs its
+    L/pp layers on each of ``m`` microbatches in every drop round (K1,
+    K2, K3); the CRF as unsharded."""
+    want = expected_launches(cfg, _VIT_336, bucket)
+    for name in _VIT_336:
+        want[name] = cfg.model.vit.num_layers // pp * m * cfg.drop.num_rounds
+    return want
+
+
+def device_bytes(model) -> int:
+    """Bytes of the model's parameters on the card."""
+    return sum(p.numel() * p.element_size() for p in model.parameters()
+               if p.device.type == "cuda")
+
+
+def tp_narrow(mesh) -> dict:
+    """Phase 8 on one rank: the narrow 192 px fused pipeline with the
+    model Megatron-sharded over the model axis, on the card and on the
+    CPU, at each of ``TP_SEEDS``."""
+    cfg = narrow_config(192)
+    out = {}
+    for seed in TP_SEEDS:
+        card, counts = narrow_run(cfg, "cuda", seed=seed, mesh=mesh)
+        cpu, _ = narrow_run(cfg, "cpu", seed=seed, mesh=mesh)
+        out[seed] = dict(cuda=card, cpu=cpu, launches=counts)
+    return out
+
+
+def pp_narrow(mesh) -> dict:
+    """Phase 8 on one rank: the narrow 192 px fused pipeline with the ViT
+    split into two stages, two microbatches, on the card."""
+    cfg = narrow_config(192)
+    card, counts = narrow_run(cfg, "cuda", mesh=mesh, encode_parallel="pp",
+                              pp_microbatches=NARROW_PP_M)
+    return dict(cuda=card, launches=counts)
+
+
+def _full(mesh, per_batch, capture: bool = False, **parallel) -> dict:
+    """One full-width run on this rank through ``run_pipeline``;
+    ``capture``: rank 0 also returns its round-0 encode and GradCAM
+    (``capture_round0``)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, runner, inputs = pipeline_setup(mesh=mesh, **parallel)
+    setup_s = time.perf_counter() - t0
+    round0, remove = capture_round0(runner, capture and mesh.rank == 0)
+    try:
+        counts, img_s, res = run_pipeline(cfg, runner, inputs,
+                                          per_batch(cfg), SP_BATCHES)
+    finally:
+        remove()
+    return dict(launches=counts, img_s=img_s, setup_s=setup_s,
+                param_bytes=device_bytes(runner.model),
+                max_allocated=torch.cuda.max_memory_allocated(),
+                round0=round0, **res)
+
+
+def tp_full(mesh) -> dict:
+    """Phase 8 on one rank: the reference default under tensor
+    parallelism over the model axis (8 of the ViT's 16 heads, 6 of
+    BERT's 12 a rank), rank 0 capturing its round 0."""
+    return _full(mesh, lambda cfg: expected_launches(cfg, TP_FULL),
+                 capture=True)
+
+
+def pp_full(mesh) -> dict:
+    """Phase 8 on one rank: the reference default with the ViT split into
+    two stages of 12 blocks, 5 microbatches of 7 images."""
+    return _full(mesh, lambda cfg: expected_pp_launches(
+        cfg, mesh.model, PP_MICROBATCHES), encode_parallel="pp",
+        pp_microbatches=PP_MICROBATCHES)
+
+
+MP_JOBS = {"tp_narrow": tp_narrow, "pp_narrow": pp_narrow,
+           "tp_full": tp_full, "pp_full": pp_full}
+
+
+def narrow_mp_check(ranks) -> dict:
+    """Phase 8's narrow runs: exact launches on both ranks; TP at each of
+    ``TP_SEEDS`` against the ranks' CPU run and the card's unsharded run,
+    PP equal to the unsharded run; rank 1 equal to rank 0. Returns rank
+    0's launches {run: counts}."""
+    cfg = narrow_config(192)
+    unsharded = {seed: narrow_run(cfg, "cuda", seed=seed)[0]
+                 for seed in TP_SEEDS}
+    want = {"tp_narrow": expected_launches(cfg, TP_NARROW, bucket=64),
+            "pp_narrow": expected_pp_launches(cfg, SP, NARROW_PP_M,
+                                              bucket=64)}
+    for r, out in enumerate(ranks):
+        runs = [("pp_narrow", out["pp_narrow"])] + [
+            ("tp_narrow", out["tp_narrow"][seed]) for seed in TP_SEEDS]
+        for job, run in runs:
+            if run["launches"] != want[job]:
+                raise SystemExit(f"FAIL: narrow {job} rank {r} launched "
+                                 f"{run['launches']}, want {want[job]}")
+    for job, w in want.items():
+        print(f"  narrow 192 px fused {job[:2].upper()}, {SP} ranks on one "
+              f"card (gloo): launches per rank {w}", flush=True)
+    r0, r1 = ranks
+    for seed in TP_SEEDS:
+        tp = r0["tp_narrow"][seed]
+        hold(f"narrow TP seed {seed} rank 0 card vs the ranks on the CPU",
+             tp["cuda"], tp["cpu"], *TP_VS_CPU)
+        hold(f"narrow TP seed {seed} rank 0 vs the card's unsharded run",
+             tp["cuda"], unsharded[seed], *SP_VS_CPU)
+        hold(f"narrow TP seed {seed} rank 1 vs rank 0",
+             r1["tp_narrow"][seed]["cuda"], tp["cuda"], *SP_EXACT)
+    hold("narrow PP rank 0 vs the card's unsharded run",
+         r0["pp_narrow"]["cuda"], unsharded[1], *SP_EXACT)
+    hold("narrow PP rank 1 vs rank 0", r1["pp_narrow"]["cuda"],
+         r0["pp_narrow"]["cuda"], *SP_EXACT)
+    return {"192 px fused TP narrow (rank 0)":
+            r0["tp_narrow"][TP_SEEDS[0]]["launches"],
+            "192 px fused PP narrow (rank 0)": r0["pp_narrow"]["launches"]}
+
+
+def tp_yardstick_bars(unsharded: dict, unfused: dict) -> tuple:
+    """(max relative map-sum difference, least share of equal labels) of
+    phase 5's unfused run against its fused run on the same weights and
+    inputs, widened by ``TP_YARDSTICK`` and ``TP_LABEL_MARGIN``."""
+    import numpy as np
+
+    rel = np.abs(unfused["sums_r0"] - unsharded["sums_r0"]).max() / max(
+        np.abs(unsharded["sums_r0"]).max(), 1e-9)
+    agree = min((unfused[k] == unsharded[k]).mean()
+                for k in ("labels_r0", "labels_agg"))
+    print(f"  yardstick, 336 px unfused vs fused (same weights): round-0 "
+          f"map sums rel diff {rel:.4g}, labels equal at least "
+          f"{agree:.4f}", flush=True)
+    return TP_YARDSTICK * rel, agree - TP_LABEL_MARGIN
+
+
+def tp_numerics_check(tp: dict, ref: dict, unf: dict) -> None:
+    """The TP runner's round-0 encode and GradCAM no further from the
+    unsharded runner's than ``TP_YARDSTICK`` times the unfused runner's
+    (each captured by ``capture_round0`` on the same weights and
+    inputs): max and mean |diff| of the encodes, max |diff| of the
+    GradCAM maps."""
+    def diffs(rec):
+        enc = (rec["encode"] - ref["encode"]).abs()
+        return dict(enc_max=enc.max().item(), enc_mean=enc.mean().item(),
+                    gc_max=(rec["gradcam"] - ref["gradcam"]).abs().max()
+                    .item())
+
+    t, u = diffs(tp), diffs(unf)
+    print(f"  336 px TP runner's round 0 vs the unsharded runner's: encode "
+          f"max |diff| {t['enc_max']:.4g}, mean {t['enc_mean']:.4g} "
+          f"(unfused runner: {u['enc_max']:.4g}, {u['enc_mean']:.4g}; max "
+          f"|y| {ref['encode'].abs().max().item():.4g}); GradCAM head "
+          f"max |diff| {t['gc_max']:.4g} (unfused runner {u['gc_max']:.4g},"
+          f" max {ref['gradcam'].abs().max().item():.4g})", flush=True)
+    for key in t:
+        if t[key] > TP_YARDSTICK * u[key]:
+            raise SystemExit(f"FAIL: TP {key} {t[key]:.4g} above "
+                             f"{TP_YARDSTICK} x the unfused runner's "
+                             f"{u[key]:.4g}")
+
+
+def full_mp_check(ranks, unsharded: dict, unfused: dict, round0: dict,
+                  card: str) -> dict:
+    """Phase 8's full-width runs (each rank asserted its launches in
+    ``run_pipeline``): TP against phase 5's unsharded 336 px run within
+    the unfused run's yardstick (``tp_yardstick_bars``,
+    ``tp_numerics_check`` on the runs' ``round0`` captures), PP equal to
+    it, rank 1 equal to rank 0. Returns {run: row of the pipeline
+    line}."""
+    rows = {}
+    tp_numerics_check(ranks[0]["tp_full"]["round0"],
+                      round0["336 px fused"], round0["336 px unfused"])
+    tp_bars = tp_yardstick_bars(unsharded, unfused)
+    for job, bars in (("tp_full", tp_bars), ("pp_full", SP_EXACT)):
+        kind = job[:2].upper()
+        for r, out in enumerate(ranks):
+            o = out[job]
+            print(f"  336 px fused {kind} rank {r}: {o['img_s']:.3f} img/s "
+                  f"over {SP_BATCHES} batch after a warm-up (gloo on one "
+                  f"card, no speed result; set-up {o['setup_s']:.1f} s), "
+                  f"parameters on the card {o['param_bytes'] / 2**20:.1f} "
+                  f"MiB, peak allocated {o['max_allocated'] / 2**30:.2f} "
+                  f"GiB, on {card}", flush=True)
+        hold(f"336 px fused {kind} rank 0 vs the unsharded run",
+             ranks[0][job], unsharded, *bars)
+        hold(f"336 px fused {kind} rank 1 vs rank 0", ranks[1][job],
+             ranks[0][job], *SP_EXACT)
+        o = ranks[0][job]
+        rows[f"336 px fused {kind} (rank 0)"] = dict(
+            img_per_s=o["img_s"], batch=full_config(336).batch_size,
+            timed_batches=SP_BATCHES, param_bytes=o["param_bytes"],
+            max_allocated=o["max_allocated"],
+            note="gloo transport on one card, no speed result")
+    return rows
+
+
+def cli_dp_rank(rank: int, n: int, port: int, argv, out_dir: str) -> None:
+    """One rank of the data-parallel CLI, with the environment torchrun
+    gives it."""
+    import torch
+
+    from pnp_ovss_tpu_torch.cli import segment
+    from pnp_ovss_tpu_torch.ops import _build
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(n),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = segment.main(argv)
+    torch.save(dict(summary=summary, launches=dict(_build.LAUNCHES),
+                    seconds=time.perf_counter() - t0),
+               os.path.join(out_dir, f"cli_rank{rank}.pt"))
+
+
+def cli_dp_check(single: dict, card: str) -> tuple:
+    """Phase 8's CLI run: ``cli.segment --distributed --mesh
+    --eval_at_bucket --device cuda:0`` on two ranks over phase 6's
+    synthetic VOC set (the same seed), against phase 6's single-process
+    ``--eval_at_bucket`` run (``single``: its per-image hists): every
+    per-image hist equal, both ranks' totals equal to each other and to
+    the sum of every per-image hist, both ranks' synchronised averages
+    equal. Returns (rank 0's launches, its row of the pipeline line)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from pnp_ovss_tpu_torch.parallel.mesh import free_port, spawn
+
+    tmp = tempfile.mkdtemp(prefix="pnp_dp_")
+    try:
+        data = os.path.join(tmp, "voc")
+        write_fake_voc(data, CLI_IMAGES)
+        out = os.path.join(tmp, "out")
+        argv = ["--data_type", "voc", "--home_dir", data, "--save_path",
+                out, "--eval_at_bucket", "--no_resume", "--distributed",
+                "--mesh", "--device", "cuda:0"]
+        t0 = time.perf_counter()
+        spawn(cli_dp_rank, SP, (SP, free_port(), argv, tmp),
+              timeout_s=RANKS_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"cli_rank{r}.pt"),
+                            weights_only=False) for r in range(SP)]
+        hists = read_hists(out, f"_bucket{BUCKET}")
+        totals = [[np.load(os.path.join(
+            out, f"total_hist_{v}_bucket{BUCKET}_rank{r}.npy"))
+            for v in ("r0", "agg")] for r in range(SP)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    images = [o["summary"]["images"] for o in ranks]
+    if images != [38, 37]:
+        raise SystemExit(f"FAIL: DP CLI ranks segmented {images} images, "
+                         "want [38, 37] (the sampler's stride)")
+    for sub in HIST_DIRS:
+        if sorted(hists[sub]) != sorted(single[sub]):
+            raise SystemExit(f"FAIL: DP CLI {sub}: other files than the "
+                             "single-process run's")
+        differ = [k for k, h in hists[sub].items()
+                  if not np.array_equal(h, single[sub][k])]
+        if differ:
+            raise SystemExit(f"FAIL: DP CLI {sub}: {len(differ)} per-image"
+                             f" hists differ from the single-process run's"
+                             f" ({differ[:3]})")
+    for i, sub in enumerate(HIST_DIRS):
+        want = sum(hists[sub].values())
+        if not all(np.array_equal(t[i], want) for t in totals):
+            raise SystemExit(f"FAIL: DP CLI {sub}: a rank's total is not "
+                             "the sum of every per-image hist")
+    avgs = [o["summary"]["global_avg"] for o in ranks]
+    if avgs[0] != avgs[1]:
+        raise SystemExit(f"FAIL: DP CLI ranks log other averages {avgs}")
+    cfg = full_config(336)
+    per_batch = expected_launches(cfg, _VIT_336)
+    for r, o in enumerate(ranks):
+        n_batches = -(-images[r] // cfg.batch_size)
+        want = {k: v * n_batches for k, v in per_batch.items()}
+        if o["launches"] != want:
+            raise SystemExit(f"FAIL: DP CLI rank {r} launched "
+                             f"{o['launches']}, want {want}")
+    print(f"  DP CLI, {SP} ranks on one card (gloo): images {images}, "
+          f"{CLI_IMAGES} per-image hists a variant equal to the single-"
+          f"process run's, both ranks' totals their sum, one synchronised"
+          f" average {avgs[0]}; launches rank 0 {ranks[0]['launches']}; "
+          f"wall {wall:.1f} s (rank 0 {ranks[0]['seconds']:.1f} s in main;"
+          f" gloo on one card, no speed result) on {card}", flush=True)
+    return ranks[0]["launches"], dict(
+        images=images, wall_s=wall, rank_s=[o["seconds"] for o in ranks],
+        note="gloo on one card, no speed result")
+
+
+def parallel_phase(unsharded: dict, unfused: dict, round0: dict,
+                   single_hists: dict, card: str) -> tuple:
+    """Phase 8: the narrow TP and PP runs, the full-width TP and PP runs
+    (two ranks, one spawn), the data-parallel CLI, and
+    ``entry.dryrun_multichip(4)``. Returns ({run: launches}, {run: row of
+    the pipeline line})."""
+    import torch
+
+    from pnp_ovss_tpu_torch import entry
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(["tp_narrow", "pp_narrow", "tp_full", "pp_full"],
+                      "MP_JOBS")
+    print(f"  TP and PP ranks: {time.perf_counter() - t0:.1f} s", flush=True)
+    launches = narrow_mp_check(ranks)
+    rows = full_mp_check(ranks, unsharded, unfused, round0, card)
+    for job in ("tp_full", "pp_full"):
+        launches[f"336 px fused {job[:2].upper()} (rank 0)"] = \
+            ranks[0][job]["launches"]
+    launches["DP CLI 336 px (rank 0)"], rows["DP CLI 336 px"] = \
+        cli_dp_check(single_hists, card)
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(4, "cuda", timeout_s=RANKS_TIMEOUT_S)
+    rows["dryrun_multichip(4)"] = dict(
+        wall_s=time.perf_counter() - t0,
+        note="4 ranks on one card through gloo, no speed result")
+    print(f"  dryrun_multichip(4): {rows['dryrun_multichip(4)']['wall_s']:.1f}"
+          " s (gloo on one card, no speed result)", flush=True)
+    return launches, rows
+
+
 def main() -> int:
     import torch
 
@@ -2432,11 +2882,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     card = card_line()
-    print(f"[1/7] card: {card}", flush=True)
+    print(f"[1/8] card: {card}", flush=True)
 
     t0 = time.perf_counter()
     paths = _build.build_all()
-    print(f"[2/7] built {len(paths)} kernel libraries in "
+    print(f"[2/8] built {len(paths)} kernel libraries in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     from pnp_ovss_tpu_torch.ops import crf_host
 
@@ -2451,7 +2901,7 @@ def main() -> int:
 
     cfg, cfg768 = full_config(336), full_config(LEG_768[0])
     t0 = time.perf_counter()
-    print("[3/7] kernels vs plain at the main paths' shapes", flush=True)
+    print("[3/8] kernels vs plain at the main paths' shapes", flush=True)
     rows = kernels_vs_plain(cfg)
     rows.update(fused_vit_kernels(cfg, cfg768))
     rows["gaussian_kernel_matmul"] = kernel_matmul_check(cfg)
@@ -2464,7 +2914,7 @@ def main() -> int:
     print(f"  phase 3: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
-    print("[4/7] CRF branches and narrow pipelines, card vs CPU", flush=True)
+    print("[4/8] CRF branches and narrow pipelines, card vs CPU", flush=True)
     for args in CRF_BRANCHES:
         crf_branch_check(*args)
     for args in NARROW_RUNS:
@@ -2472,20 +2922,27 @@ def main() -> int:
         if "flash_mha" in args[3]:
             k9_counts = counts  # the one run whose path takes K9
     narrow_clip_check()
-    sp_narrow_check(run_sp(["narrow"]))
+    sp_narrow_check(run_ranks(["narrow"]))
     print(f"  phase 4: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
-    print("[5/7] full-width pipelines", flush=True)
+    print("[5/8] full-width pipelines", flush=True)
     # Launches of each run, in the order the kernels line reads them.
-    runs, summaries, launch_runs = {}, {}, {}
+    runs, summaries, launch_runs, round0 = {}, {}, {}, {}
     for name, size, fused, vit_kernels, post in FULL_RUNS:
         run_cfg, runner, inputs = pipeline_setup(image_size=size,
                                                  vit_fused=fused, post=post)
         print(f"  {name}: batch {run_cfg.batch_size}, "
               f"{run_cfg.model.vit.seq_len} tokens", flush=True)
-        counts, img_s, summaries[name] = run_pipeline(
-            run_cfg, runner, inputs, expected_launches(run_cfg, vit_kernels))
+        # phase 8's TP yardstick reads these two runs' round 0
+        round0[name], remove = capture_round0(
+            runner, name in ("336 px fused", "336 px unfused"))
+        try:
+            counts, img_s, summaries[name] = run_pipeline(
+                run_cfg, runner, inputs,
+                expected_launches(run_cfg, vit_kernels))
+        finally:
+            remove()
         print(f"  {name}: {img_s:.3f} img/s on {card}", flush=True)
         runs[name] = dict(img_per_s=img_s, batch=run_cfg.batch_size,
                           timed_batches=PIPELINE_BATCHES)
@@ -2493,7 +2950,7 @@ def main() -> int:
         del runner
         torch.cuda.empty_cache()
     print(f"  336 px fused SP: {SP} ranks on one card (gloo)", flush=True)
-    ranks = run_sp(["full", "encode_768"])
+    ranks = run_ranks(["full", "encode_768"])
     runs["336 px fused SP (rank 0)"] = sp_full_check(
         ranks, summaries["336 px fused"], card)
     launch_runs["336 px fused SP (rank 0)"] = ranks[0]["full"]["launches"]
@@ -2501,17 +2958,27 @@ def main() -> int:
     print(f"  phase 5: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
-    print("[6/7] the segmentation CLI", flush=True)
-    launch_runs["CLI 336 px"], runs["CLI 336 px"] = cli_phase(card)
+    print("[6/8] the segmentation CLI", flush=True)
+    launch_runs["CLI 336 px"], runs["CLI 336 px"], bucket_hists = \
+        cli_phase(card)
     print(f"  phase 6: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
-    print("[7/7] the parity CLI, the postprocess gate, the search",
+    print("[7/8] the parity CLI, the postprocess gate, the search",
           flush=True)
     launches7, rows7 = parity_and_search_phase(card)
     launch_runs.update(launches7)
     runs.update(rows7)
     print(f"  phase 7: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    print("[8/8] data, tensor and pipeline parallelism", flush=True)
+    launches8, rows8 = parallel_phase(summaries["336 px fused"],
+                                      summaries["336 px unfused"], round0,
+                                      bucket_hists, card)
+    launch_runs.update(launches8)
+    runs.update(rows8)
+    print(f"  phase 8: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # Launches of each kernel in the first run whose path takes it (K4:
     # the 768 px run, K8: the exact CRF run, K7: the SP run, K9: the

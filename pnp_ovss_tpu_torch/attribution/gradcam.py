@@ -13,6 +13,11 @@ softmax; ``torch.autograd.grad`` with respect to it yields exactly the
 gradient the reference's hooks capture, for every captured layer in one
 backward pass. The tap sits after the ViT, so the backward pass never
 reaches the image encoder, which runs without a gradient.
+
+Under tensor parallelism (``model.tp``) each rank's tap and probabilities
+hold its own heads; both the probabilities and their gradients are
+gathered over the heads (``parallel.tensor.gather_heads``) before any
+head is selected, so every rank returns every head's map.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ from typing import Optional
 
 import torch
 from torch.nn import functional as F
+
+from pnp_ovss_tpu_torch.parallel.tensor import gather_heads
 
 
 def gradcam_from_embeds(model, image_embeds: torch.Tensor,
@@ -31,15 +38,21 @@ def gradcam_from_embeds(model, image_embeds: torch.Tensor,
     b, t = input_ids.shape
     s = image_embeds.shape[1]
     heads = model.cfg.bert.num_heads
+    tp = getattr(model, "tp", None)
+    local = heads if tp is None else heads // tp.size
     n_layers = len(model.text_encoder.capture_layers)
-    tap = torch.zeros((n_layers, b, heads, t, s), dtype=torch.float32,
+    tap = torch.zeros((n_layers, b, local, t, s), dtype=torch.float32,
                       device=image_embeds.device, requires_grad=True)
     with torch.enable_grad():
         logits, cams = model.itm_from_embeds(image_embeds, input_ids,
                                              attention_mask, cross_tap=tap)
         (grads,) = torch.autograd.grad(logits[:, 1].sum(), tap)
+    cams = cams.detach()
+    if tp is not None:  # [L, B, H/tp, ...] -> [L, B, H, ...], both at once
+        both = gather_heads(torch.cat([cams, grads]).flatten(0, 1), tp)
+        cams, grads = both.unflatten(0, (2 * n_layers, b)).chunk(2)
     mask = attention_mask.float()[:, None, :, None]
-    gc = cams.detach()[..., 1:] * F.relu(grads[..., 1:]) * mask
+    gc = cams[..., 1:] * F.relu(grads[..., 1:]) * mask
     gc = F.relu(gc)[..., 1:, :]  # drop the [ENC] token row
     return (gc.reshape(n_layers, b, heads, t - 1, grid, grid),
             logits.detach())

@@ -23,8 +23,23 @@ down, and the worker runs the reference's per-image postprocess at GT
 resolution on them (``SegmentationRunner.finalize_image_parity``: numpy and
 the native lattice CRF, spread over the host's cores; no device work).
 ``--device cuda`` (the default)
-raises without a card; nothing falls back to the CPU. Flags of features the
-port does not have yet raise ``SystemExit`` and name their ROADMAP item.
+raises without a card; nothing falls back to the CPU.
+
+Parallel runs start one process per rank under torchrun, as the
+reference's DDP does:
+
+    torchrun --nproc_per_node N -m pnp_ovss_tpu_torch.cli.segment \
+        --distributed [--mesh | --tensor_parallel k | \
+        --sequence_parallel k | --pipeline_parallel k \
+        --pp_microbatches m] ...
+
+The ranks form a (data, model) mesh with the chosen strategy's size on
+the model axis (``parallel/mesh.py``). Each data index segments its
+share of the records (the DistributedSampler's stride); the ranks of one
+model group share a batch and only its model rank 0 writes files. Under
+``--eval_at_bucket`` the run totals are summed over the data group before
+they are written, and at the end every rank logs the metrics synchronised
+over all ranks.
 """
 
 from __future__ import annotations
@@ -61,21 +76,48 @@ def get_args_parser() -> argparse.ArgumentParser:
     p.add_argument("--save_path", required=True)
     p.add_argument("--home_dir", required=True)
     p.add_argument("--world_size", type=int, default=1,
-                   help="data-parallel processes: this one segments every "
+                   help="data-parallel processes started by hand, without "
+                        "--distributed: this one segments every "
                         "world_size-th image from --rank on")
     p.add_argument("--rank", type=int, default=0)
     p.add_argument("--distributed", action="store_true",
-                   help="not ported (ROADMAP A8)")
+                   help="join the ranks torchrun started (env://: RANK, "
+                        "WORLD_SIZE, LOCAL_RANK) into a (data, model) mesh;"
+                        " rank and world size come from the group. The "
+                        "reference's DDP setup (ddp_setup :45-54). Each "
+                        "rank computes on cuda:LOCAL_RANK under --device "
+                        "cuda (NCCL; one card per rank); --device cuda:N "
+                        "pins every rank to card N and --device cpu to the "
+                        "CPU (gloo)")
     p.add_argument("--mesh", action="store_true",
-                   help="not ported (ROADMAP A8)")
+                   help="a data-parallel mesh over the ranks (every rank "
+                        "holds the whole model); without --distributed "
+                        "there is one rank, so data = 1")
     p.add_argument("--tensor_parallel", type=int, default=1,
-                   help="> 1 not ported (ROADMAP A8)")
+                   help="Megatron-shard the model over an inner `model` "
+                        "mesh axis of this size (must divide the head "
+                        "counts: ViT 16 / BERT 12 -> 1, 2 or 4; implies "
+                        "--mesh; needs --distributed). The fused ViT block "
+                        "then runs K1 (qkv; LN2 + the fc1 slab), K2' on "
+                        "the rank's heads and the row slabs as cuBLAS "
+                        "products; K3 is not launched, since its epilogue "
+                        "cannot stop at a partial sum")
     p.add_argument("--sequence_parallel", type=int, default=1,
-                   help="> 1 not ported (ROADMAP A8)")
+                   help="split the ViT encode's tokens over an inner "
+                        "`model` mesh axis of this size (K/V gathered per "
+                        "layer, parallel/sequence.py; implies --mesh; "
+                        "needs --distributed). Exclusive with "
+                        "--tensor_parallel/--pipeline_parallel")
     p.add_argument("--pipeline_parallel", type=int, default=1,
-                   help="> 1 not ported (ROADMAP A8)")
+                   help="GPipe-split the ViT block stack's layers over an "
+                        "inner `model` mesh axis of this size (must divide "
+                        "num_layers=24; parallel/pipeline.py; implies "
+                        "--mesh; needs --distributed). Exclusive with "
+                        "--tensor_parallel/--sequence_parallel")
     p.add_argument("--pp_microbatches", type=int, default=None,
-                   help="not ported (ROADMAP A8)")
+                   help="with --pipeline_parallel: microbatches per batch "
+                        "(default = pipeline depth; must divide the batch "
+                        "size, e.g. 5 or 7 at batch 35)")
     p.add_argument("--max_txt_len", type=int, default=128,
                    help="static caption bucket (reference pads to 500)")
     p.add_argument("--checkpoint", default=None,
@@ -142,18 +184,27 @@ def get_args_parser() -> argparse.ArgumentParser:
     return p
 
 
-def reject_unported(args) -> None:
-    """Raise ``SystemExit`` for a flag whose feature the port lacks."""
-    unported = [flag for flag, on in (
-        ("--distributed", args.distributed), ("--mesh", args.mesh),
-        ("--tensor_parallel", args.tensor_parallel > 1),
-        ("--sequence_parallel", args.sequence_parallel > 1),
-        ("--pipeline_parallel", args.pipeline_parallel > 1),
-        ("--pp_microbatches", args.pp_microbatches is not None)) if on]
-    if unported:
-        raise SystemExit(f"{', '.join(unported)}: data, tensor, sequence and "
-                         "pipeline parallelism are not ported to the CLI "
-                         "yet (ROADMAP A8)")
+def model_axis_strategy(args):
+    """The model-axis strategy the flags ask for: (its flag or None, the
+    axis size). The three strategies share the `model` mesh axis, so at
+    most one may be > 1 (``SystemExit``, as the JAX CLI), and a model
+    axis > 1 needs the ranks of ``--distributed``."""
+    strategies = {
+        "--tensor_parallel": args.tensor_parallel,
+        "--sequence_parallel": args.sequence_parallel,
+        "--pipeline_parallel": args.pipeline_parallel,
+    }
+    active = {k: v for k, v in strategies.items() if v > 1}
+    if len(active) > 1:
+        raise SystemExit(
+            f"choose at most one of {', '.join(active)} (all shard the "
+            f"same `model` mesh axis)")
+    if active and not args.distributed:
+        flag, size = next(iter(active.items()))
+        raise SystemExit(
+            f"{flag} {size}: a model axis > 1 needs {size} or more ranks; "
+            "start them with torchrun and pass --distributed")
+    return (next(iter(active), None), max(strategies.values()))
 
 
 def run_in_the_wild(args, cfg, runner, tok, meta):
@@ -253,9 +304,10 @@ def main(argv=None):
     were written (``batch_done_s``) and the seconds its host finalize took
     on the worker thread (``finalize_s``)."""
     args = get_args_parser().parse_args(argv)
-    reject_unported(args)
+    strategy, model_axis = model_axis_strategy(args)
 
     import torch
+    from torch import distributed as dist
 
     from pnp_ovss_tpu_torch import resolve_device
     from pnp_ovss_tpu_torch.config import NUM_CLASSES
@@ -272,7 +324,26 @@ def main(argv=None):
     from pnp_ovss_tpu_torch.text.wordpiece import WordPieceTokenizer
     from pnp_ovss_tpu_torch.utils.logging import MetricLogger, log
 
-    device = resolve_device(args.device)
+    mesh, owns_group = None, False
+    if args.distributed:
+        from pnp_ovss_tpu_torch.parallel.mesh import init_from_env
+
+        owns_group = not dist.is_initialized()
+        mesh, device = init_from_env(model_axis, args.device)
+        args.rank, args.world_size = mesh.rank, mesh.world_size
+        log(f"mesh over {mesh.world_size} ranks ({mesh.backend}): "
+            f"data={mesh.data} x model={mesh.model}"
+            + (f" ({strategy.lstrip('-')})" if strategy else ""))
+    else:
+        device = resolve_device(args.device)
+        if args.mesh:
+            log("data-parallel mesh over 1 rank (no --distributed)")
+    # Records split by data index: the ranks of a model group share them.
+    data_rank, data_size = ((mesh.data_rank, mesh.data) if mesh is not None
+                            else (args.rank, args.world_size))
+    writer = mesh is None or mesh.model_rank == 0
+    encode_parallel = {"--sequence_parallel": "sp",
+                       "--pipeline_parallel": "pp"}.get(strategy)
     cfg = build_config(args)
     meta = get_dataset_meta(args.data_type)
 
@@ -304,7 +375,9 @@ def main(argv=None):
         model = init_blip_itm(cfg.model, capture_layers=(layer0,), seed=0,
                               device=device, vit_fused=vit_fused)
     runner = SegmentationRunner(cfg, model, device=device,
-                                bucket_size=args.bucket_size)
+                                bucket_size=args.bucket_size,
+                                encode_parallel=encode_parallel, mesh=mesh,
+                                pp_microbatches=args.pp_microbatches)
 
     if args.in_the_wild:
         if not args.wild_dir:
@@ -316,8 +389,9 @@ def main(argv=None):
     records = list(ds.records())
     if args.limit:
         records = records[: args.limit]
-    records = shard_records(records, args.rank, args.world_size)
-    log(f"{len(records)} images on rank {args.rank}/{args.world_size}")
+    records = shard_records(records, data_rank, data_size)
+    log(f"{len(records)} images on data rank {data_rank}/{data_size}",
+        all_ranks=True)
 
     # Bucket-resolution hists have different metric semantics than exact-
     # GT-res hists; tag the directories so an offline aggregator can never
@@ -329,8 +403,9 @@ def main(argv=None):
     hist_dir_agg = os.path.join(
         args.save_path, "all_drop_hist_with_filtered_caption" + bucket_tag
     )
-    os.makedirs(hist_dir_r0, exist_ok=True)
-    os.makedirs(hist_dir_agg, exist_ok=True)
+    if writer:
+        os.makedirs(hist_dir_r0, exist_ok=True)
+        os.makedirs(hist_dir_agg, exist_ok=True)
 
     def hist_path(d, img_id):
         return os.path.join(
@@ -527,9 +602,10 @@ def main(argv=None):
             t_dev = time.perf_counter() - t0
             if fin_future is not None:
                 fin_future.result()  # surface worker exceptions, keep order
-            fin_future = finalize_pool.submit(
-                finalize_batch, b0, res0, cls0, valid0, hists_np
-            )
+            if writer:  # the other ranks of a model group hold copies
+                fin_future = finalize_pool.submit(
+                    finalize_batch, b0, res0, cls0, valid0, hists_np
+                )
             logger.update(
                 device_s=t_dev,
                 imgs_per_s=len(b0.records) / max(
@@ -593,18 +669,42 @@ def main(argv=None):
         if fin_future is not None:
             fin_future.result()
 
+    summary = {}
+    if args.distributed:
+        # Cross-rank metric sync (reference SmoothedValue all_reduce,
+        # utils.py:48-59): after this every rank's global_avg describes
+        # the whole run, not its own shard. On the main thread, as every
+        # collective.
+        names = ("host_s", "device_s", "imgs_per_s")
+        logger.synchronize_between_processes(names=names)
+        summary["global_avg"] = {k: logger.meters[k].global_avg
+                                 for k in names}
+        log(f"global (all {args.world_size} ranks), rank {args.rank}: "
+            f"{logger}", all_ranks=True)
+
     if args.eval_at_bucket:
+        if mesh is not None and mesh.data > 1:
+            # The JAX CLI's in-graph reduction over the data axis: every
+            # data rank ends with the whole run's totals (a rank with no
+            # batch adds zeros).
+            for variant in ("r0", "agg"):
+                total = dev_totals.setdefault(variant, torch.zeros(
+                    (n_class, n_class), dtype=torch.int32, device=device))
+                dist.all_reduce(total, group=mesh.data_axis.group)
         # One run total per rank, straight off the device, written next to
         # the per-image resume files.
         for variant, total in dev_totals.items():
             totals[variant] = total.cpu().numpy()
-            np.save(
-                os.path.join(
-                    args.save_path,
-                    f"total_hist_{variant}{bucket_tag}_rank{args.rank}.npy",
-                ),
-                totals[variant],
-            )
+            if writer:
+                np.save(
+                    os.path.join(
+                        args.save_path, f"total_hist_{variant}{bucket_tag}"
+                                        f"_rank{args.rank}.npy",
+                    ),
+                    totals[variant],
+                )
+    if owns_group:
+        dist.destroy_process_group()
 
     for name, variant in (("1-drop", "r0"), ("N-drop agg", "agg")):
         total = totals[variant]
@@ -618,7 +718,7 @@ def main(argv=None):
     return {"images": len(records), "batch_images": [
         len(b) for b in (records[i:i + bs]
                          for i in range(0, len(records), bs))],
-        "batch_done_s": batch_done_s, "finalize_s": finalize_s}
+        "batch_done_s": batch_done_s, "finalize_s": finalize_s, **summary}
 
 
 if __name__ == "__main__":

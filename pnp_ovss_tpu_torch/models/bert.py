@@ -13,6 +13,14 @@ one forward and one backward. Layers before the first captured one carry
 no tap gradient and run under ``torch.no_grad()``. With
 ``image_embeds=None`` the encoder runs text-only (the reference's
 mode="text", no cross-attention; med.py:473-508), as ITC needs.
+
+Tensor parallelism (``tp=group`` on an encoder whose linears
+``parallel.tensor.shard_model`` cut, the JAX package's Megatron layout):
+q/k/v of both attentions and ``intermediate`` are column slabs that read
+Megatron's f of their input, every ``output_dense`` a row slab whose f32
+partial product goes through g before the bias, the residual and the
+LayerNorm. Attention runs on this rank's heads, so the cross-attention
+tap and the captured probabilities are ``[L, B, H/tp, T, S]``.
 """
 
 from __future__ import annotations
@@ -26,6 +34,10 @@ from torch.nn import functional as F
 from pnp_ovss_tpu_torch.config import BertConfig
 from pnp_ovss_tpu_torch.models.layers import DTYPES, LayerNorm
 from pnp_ovss_tpu_torch.ops import attention as attn_ops
+from pnp_ovss_tpu_torch.parallel.mesh import AxisGroup
+from pnp_ovss_tpu_torch.parallel.tensor import (
+    check_heads, copy_to_model_group, reduce_from_model_group, row_partial,
+)
 
 
 def _heads(y: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -36,6 +48,23 @@ def _heads(y: torch.Tensor, num_heads: int) -> torch.Tensor:
 def _merge(y: torch.Tensor) -> torch.Tensor:
     b, h, t, d = y.shape
     return y.transpose(1, 2).reshape(b, t, h * d)
+
+
+def _local_heads(cfg: BertConfig, tp: Optional[AxisGroup]) -> int:
+    return cfg.num_heads if tp is None else \
+        check_heads(cfg.num_heads, tp.size, "BERT")
+
+
+def _row_out(linear: nn.Linear, y: torch.Tensor, full: int,
+             tp: Optional[AxisGroup]) -> torch.Tensor:
+    """A row-parallel ``linear`` of ``y``: the plain product, or under
+    tensor parallelism (when ``shard_model`` cut its input of width
+    ``full``) this rank's partial sum through g, then the bias, rounded
+    once to ``y``'s dtype."""
+    if tp is None or linear.in_features == full:
+        return linear(y)
+    acc = reduce_from_model_group(row_partial(y, linear), tp)
+    return (acc + linear.bias.float()).to(y.dtype)
 
 
 class BertSelfAttentionBlock(nn.Module):
@@ -50,12 +79,17 @@ class BertSelfAttentionBlock(nn.Module):
         self.output_dense = nn.Linear(d, d, dtype=dtype)
         self.output_norm = LayerNorm(d, cfg.layer_norm_eps, dtype)
 
-    def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-        h = self.cfg.num_heads
-        ctx = attn_ops.mha(_heads(self.query(x), h), _heads(self.key(x), h),
-                           _heads(self.value(x), h), bias,
-                           out_dtype=DTYPES[self.cfg.dtype])
-        return self.output_norm(self.output_dense(_merge(ctx)) + x)
+    def forward(self, x: torch.Tensor, bias: torch.Tensor,
+                tp: Optional[AxisGroup] = None) -> torch.Tensor:
+        c = self.cfg
+        h = _local_heads(c, tp)
+        xin = copy_to_model_group(x, tp)
+        ctx = attn_ops.mha(_heads(self.query(xin), h),
+                           _heads(self.key(xin), h),
+                           _heads(self.value(xin), h), bias,
+                           out_dtype=DTYPES[c.dtype])
+        out = _row_out(self.output_dense, _merge(ctx), c.hidden_size, tp)
+        return self.output_norm(out + x)
 
 
 class BertCrossAttentionBlock(nn.Module):
@@ -70,17 +104,22 @@ class BertCrossAttentionBlock(nn.Module):
         self.output_dense = nn.Linear(d, d, dtype=dtype)
         self.output_norm = LayerNorm(d, cfg.layer_norm_eps, dtype)
 
-    def forward(self, x, kv, capture: bool, tap: Optional[torch.Tensor]):
-        """x [B, T, h] text; kv [B, S, w] image embeds; tap [B, H, T, S].
-        Returns (x, probs or None)."""
-        h = self.cfg.num_heads
-        probs = attn_ops.attention_probs(_heads(self.query(x), h),
-                                         _heads(self.key(kv), h))
+    def forward(self, x, kv, capture: bool, tap: Optional[torch.Tensor],
+                tp: Optional[AxisGroup] = None):
+        """x [B, T, h] text; kv [B, S, w] image embeds (no gradient);
+        tap [B, H/tp, T, S]. Returns (x, probs of this rank's heads or
+        None)."""
+        c = self.cfg
+        h = _local_heads(c, tp)
+        probs = attn_ops.attention_probs(
+            _heads(self.query(copy_to_model_group(x, tp)), h),
+            _heads(self.key(kv), h))
         if tap is not None:
             probs = probs + tap
         ctx = attn_ops.apply_probs(probs, _heads(self.value(kv), h),
-                                   out_dtype=DTYPES[self.cfg.dtype])
-        x = self.output_norm(self.output_dense(_merge(ctx)) + x)
+                                   out_dtype=DTYPES[c.dtype])
+        out = _row_out(self.output_dense, _merge(ctx), c.hidden_size, tp)
+        x = self.output_norm(out + x)
         return x, (probs if capture else None)
 
 
@@ -96,15 +135,19 @@ class BertLayer(nn.Module):
                                       dtype=dtype)
         self.output_norm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
                                      dtype)
+        self.cfg = cfg
 
-    def forward(self, x, bias, image_embeds, capture=False, tap=None):
+    def forward(self, x, bias, image_embeds, capture=False, tap=None,
+                tp: Optional[AxisGroup] = None):
         """image_embeds None: text-only (no cross-attention, nothing
         captured)."""
-        x = self.attention(x, bias)
+        x = self.attention(x, bias, tp)
         captured = None
         if image_embeds is not None:
-            x, captured = self.crossattention(x, image_embeds, capture, tap)
-        h = self.output_dense(F.gelu(self.intermediate(x)))
+            x, captured = self.crossattention(x, image_embeds, capture, tap,
+                                              tp)
+        g = F.gelu(self.intermediate(copy_to_model_group(x, tp)))
+        h = _row_out(self.output_dense, g, self.cfg.intermediate_size, tp)
         return self.output_norm(h + x), captured
 
 
@@ -137,6 +180,7 @@ class BertFusionEncoder(nn.Module):
         attention_mask: torch.Tensor,  # [B, T] {0, 1}
         image_embeds: Optional[torch.Tensor],  # [B, S, encoder_width]
         cross_tap: Optional[torch.Tensor] = None,
+        tp: Optional[AxisGroup] = None,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         dtype = DTYPES[self.cfg.dtype]
         t = input_ids.shape[1]
@@ -147,16 +191,16 @@ class BertFusionEncoder(nn.Module):
                 + self.position_embeddings[:t].to(dtype)
             x = self.embed_norm(x)
             for layer in self.layers[:first]:
-                x, _ = layer(x, bias, image_embeds)
+                x, _ = layer(x, bias, image_embeds, tp=tp)
         captured = []
         for i in range(first, self.cfg.num_layers):
             if i not in self.capture_layers:
-                x, _ = self.layers[i](x, bias, image_embeds)
+                x, _ = self.layers[i](x, bias, image_embeds, tp=tp)
                 continue
             tap = None if cross_tap is None \
                 else cross_tap[self.capture_layers.index(i)]
             x, cap = self.layers[i](x, bias, image_embeds, capture=True,
-                                    tap=tap)
+                                    tap=tap, tp=tp)
             captured.append(cap)
         if image_embeds is None:
             return x, None

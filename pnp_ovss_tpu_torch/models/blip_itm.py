@@ -7,6 +7,11 @@ the hyper-parameter search scores with.
 
 Inference only: parameters never require grad, and the only gradient the
 pipeline takes is GradCAM's, with respect to the cross-attention tap.
+
+``tp``: the model axis a ``parallel.tensor.shard_model`` call cut the
+linears over (None: the whole model). Every forward passes it to the ViT
+and the BERT encoder; the ITM head and the ITC projections stay
+replicated.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from pnp_ovss_tpu_torch.config import ModelConfig
 from pnp_ovss_tpu_torch.models.bert import BertFusionEncoder
 from pnp_ovss_tpu_torch.models.layers import LayerNorm
 from pnp_ovss_tpu_torch.models.vit import VisionTransformer
+from pnp_ovss_tpu_torch.parallel.mesh import AxisGroup
 
 
 class BlipITM(nn.Module):
@@ -42,18 +48,20 @@ class BlipITM(nn.Module):
         self.itm_head = nn.Linear(cfg.bert.hidden_size, 2)  # float32
         self.vision_proj = nn.Linear(cfg.vit.hidden_size, cfg.embed_dim)
         self.text_proj = nn.Linear(cfg.bert.hidden_size, cfg.embed_dim)
+        self.tp: Optional[AxisGroup] = None
 
     @torch.no_grad()
     def encode_image(self, images: torch.Tensor) -> torch.Tensor:
         """images [B, H, W, 3] normalised NHWC -> [B, S, width]."""
-        return self.visual_encoder(images)
+        return self.visual_encoder(images, tp=self.tp)
 
     def itm_from_embeds(self, image_embeds, input_ids, attention_mask,
                         cross_tap: Optional[torch.Tensor] = None):
-        """-> (ITM logits [B, 2] f32, captured probs [L, B, H, T, S]). The
-        embeddings are detached: no gradient may reach the ViT."""
+        """-> (ITM logits [B, 2] f32, captured probs [L, B, H/tp, T, S]).
+        The embeddings are detached: no gradient may reach the ViT."""
         hidden, probs = self.text_encoder(
-            input_ids, attention_mask, image_embeds.detach(), cross_tap)
+            input_ids, attention_mask, image_embeds.detach(), cross_tap,
+            tp=self.tp)
         return self.itm_head(hidden[:, 0].float()), probs
 
     def forward(self, images, input_ids, attention_mask,
@@ -82,7 +90,8 @@ class BlipITM(nn.Module):
         the text-only encoder."""
         img = self.vision_proj(self.encode_image(images)[:, 0].float())
         img = img / torch.linalg.vector_norm(img, dim=-1, keepdim=True)
-        hidden, _ = self.text_encoder(input_ids, attention_mask, None)
+        hidden, _ = self.text_encoder(input_ids, attention_mask, None,
+                                      tp=self.tp)
         txt = self.text_proj(hidden[:, 0].float())
         txt = txt / torch.linalg.vector_norm(txt, dim=-1, keepdim=True)
         return img @ txt.T

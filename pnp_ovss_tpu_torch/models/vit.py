@@ -22,6 +22,19 @@ Sequence parallelism (``forward(images, sp=group)``, the JAX package's
 attention gathers K/V from the group's ranks and runs K7 on the local
 query rows.
 
+Tensor parallelism (``forward(images, tp=group)`` on a ViT whose linears
+``parallel.tensor.shard_model`` cut, the JAX package's Megatron layout):
+qkv stays replicated (K1 in the fused block, whole width on every rank),
+attention runs on this rank's heads (K2' on the column views, or K9 /
+plain attention where the flat kernel's head-pair rule rejects the local
+head count), and ``proj`` and ``mlp_fc2`` are row-parallel: this rank's
+partial products (bf16 values, f32 sums) are summed over the group
+before the bias and the residual. K3 fuses ``b2`` and the residual into
+its epilogue, so it cannot emit a partial sum: under tensor parallelism
+the fused block runs K3's value flow as LN2 + the ``mlp_fc1`` column
+slab in K1, then the row slab of ``mlp_fc2`` as a cuBLAS product, and K3
+is not launched.
+
 The JAX package pads the whole encode to its k-block schedule (a TPU tile
 rule); the port carries ``[B, S, D]`` as it is (under sequence
 parallelism padded to a multiple of the group size), and the kernels mask
@@ -41,6 +54,7 @@ from pnp_ovss_tpu_torch.models.layers import DTYPES, LayerNorm
 from pnp_ovss_tpu_torch.ops import attention as attn_ops
 from pnp_ovss_tpu_torch.ops import vit_block
 from pnp_ovss_tpu_torch.ops.flash_attention import (
+    flash_mha_flat,
     flash_mha_flat_qkv,
     flash_mha_flat_xlen,
     flash_mha_qkv_proj,
@@ -48,7 +62,10 @@ from pnp_ovss_tpu_torch.ops.flash_attention import (
     proj_fold_enabled,
     xlen_supported,
 )
-from pnp_ovss_tpu_torch.parallel.mesh import SequenceGroup
+from pnp_ovss_tpu_torch.parallel.mesh import AxisGroup, SequenceGroup
+from pnp_ovss_tpu_torch.parallel.tensor import (
+    check_heads, reduce_from_model_group, row_partial,
+)
 
 _NEG_INF = -1e30
 
@@ -120,6 +137,32 @@ def sp_attention(cfg: ViTConfig, qkv: torch.Tensor,
     return _merge_heads(out)
 
 
+def tp_attention(cfg: ViTConfig, qkv: torch.Tensor,
+                 tp: AxisGroup) -> torch.Tensor:
+    """Attention of this rank's heads: ``qkv`` [B, S, 3*H*D], the whole
+    replicated projection; the rank's q, k and v are strided column views
+    of it (no copy) -> [B, S, H/tp*D]. K2' where the flat kernel takes the
+    local head count, else ``mha(impl="flash")`` (K9 for an odd count)."""
+    c = cfg
+    dtype = DTYPES[c.dtype]
+    h = check_heads(c.num_heads, tp.size, "ViT")
+    s = qkv.shape[1]
+    w, hd = h * c.head_dim, c.hidden_size
+    lo = tp.rank * w
+    q, k, v = (qkv[..., i * hd + lo:i * hd + lo + w] for i in range(3))
+    if flat_supported(s, h, c.head_dim):
+        return flash_mha_flat(q, k, v, num_heads=h, out_dtype=dtype)
+    out = attn_ops.mha(_heads(q, h), _heads(k, h), _heads(v, h),
+                       impl="flash", out_dtype=dtype)
+    return _merge_heads(out)
+
+
+def _mlp_cut(cfg: ViTConfig, fc2: nn.Linear) -> bool:
+    """Whether ``shard_model`` cut the MLP (it leaves a width that the
+    group does not divide whole)."""
+    return fc2.in_features != int(cfg.hidden_size * cfg.mlp_ratio)
+
+
 class ViTSelfAttention(nn.Module):
     def __init__(self, cfg: ViTConfig):
         super().__init__()
@@ -129,12 +172,17 @@ class ViTSelfAttention(nn.Module):
                              dtype=dtype)
         self.proj = nn.Linear(cfg.hidden_size, cfg.hidden_size, dtype=dtype)
 
-    def forward(self, x: torch.Tensor,
-                sp: Optional[SequenceGroup] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, sp: Optional[SequenceGroup] = None,
+                tp: Optional[AxisGroup] = None) -> torch.Tensor:
         c = self.cfg
         dtype = DTYPES[c.dtype]
         s = x.shape[1]
         qkv = self.qkv(x)
+        if tp is not None:
+            # proj row-parallel: the partial sums, then the bias once.
+            out = tp_attention(c, qkv, tp)
+            acc = reduce_from_model_group(row_partial(out, self.proj), tp)
+            return (acc + self.proj.bias.float()).to(dtype)
         if sp is not None:
             out = sp_attention(c, qkv, sp)
         elif flat_supported(s, c.num_heads, c.head_dim):
@@ -159,11 +207,14 @@ class ViTBlock(nn.Module):
         self.mlp_fc1 = nn.Linear(cfg.hidden_size, mlp, dtype=dtype)
         self.mlp_fc2 = nn.Linear(mlp, cfg.hidden_size, dtype=dtype)
 
-    def forward(self, x: torch.Tensor,
-                sp: Optional[SequenceGroup] = None) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x), sp)
+    def forward(self, x: torch.Tensor, sp: Optional[SequenceGroup] = None,
+                tp: Optional[AxisGroup] = None) -> torch.Tensor:
+        x = x + self.attn(self.norm1(x), sp, tp)
         h = F.gelu(self.mlp_fc1(self.norm2(x)))  # exact erf
-        return x + self.mlp_fc2(h)
+        if tp is None or not _mlp_cut(self.cfg, self.mlp_fc2):
+            return x + self.mlp_fc2(h)
+        acc = reduce_from_model_group(row_partial(h, self.mlp_fc2), tp)
+        return x + (acc + self.mlp_fc2.bias.float()).to(x.dtype)
 
 
 class ViTBlockFused(ViTBlock):
@@ -171,8 +222,8 @@ class ViTBlockFused(ViTBlock):
     (so ``from_jax_params`` and the seeded init see no difference), the
     kernels' value flow in the forward."""
 
-    def forward(self, x: torch.Tensor,
-                sp: Optional[SequenceGroup] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, sp: Optional[SequenceGroup] = None,
+                tp: Optional[AxisGroup] = None) -> torch.Tensor:
         c = self.cfg
         b, s, d = x.shape
         eps = c.layer_norm_eps
@@ -180,6 +231,8 @@ class ViTBlockFused(ViTBlock):
         qkv = vit_block.ln_matmul(
             x.reshape(b * s, d), self.norm1.weight, self.norm1.bias,
             attn.qkv.weight, attn.qkv.bias, eps=eps).reshape(b, s, 3 * d)
+        if tp is not None:
+            return self._forward_tp(x, qkv, tp)
         if sp is None and proj_fold_enabled(s):
             x = flash_mha_qkv_proj(qkv, x, attn.proj.weight, attn.proj.bias,
                                    num_heads=c.num_heads)
@@ -193,6 +246,34 @@ class ViTBlockFused(ViTBlock):
             x.reshape(b * s, d), self.norm2.weight, self.norm2.bias,
             self.mlp_fc1.weight, self.mlp_fc1.bias, self.mlp_fc2.weight,
             self.mlp_fc2.bias, eps=eps).reshape(b, s, d)
+
+    def _forward_tp(self, x: torch.Tensor, qkv: torch.Tensor,
+                    tp: AxisGroup) -> torch.Tensor:
+        """The block after K1 under tensor parallelism: attention on this
+        rank's heads, then ``proj`` as a row slab; LN2 + the ``mlp_fc1``
+        column slab in K1, the block's gelu, and ``mlp_fc2`` as a row
+        slab. A row slab's partial product (bf16 values, f32 sums:
+        ``row_partial``) is summed over the group, then rounded where the
+        unsharded block rounds (the proj as ``x + (F.linear(out, W) +
+        b)``, the MLP as K3's plain version); the sums run in another
+        order. K3 is not launched: its epilogue adds ``b2`` and the
+        residual, so it cannot stop at a partial sum (K4 neither: its
+        proj is the whole contraction)."""
+        c = self.cfg
+        b, s, d = x.shape
+        dt = x.dtype
+        attn = self.attn
+        out = tp_attention(c, qkv, tp)
+        acc = reduce_from_model_group(row_partial(out, attn.proj), tp)
+        x = (x + (acc.to(dt) + attn.proj.bias)).reshape(b * s, d)
+        y = vit_block.ln_matmul(x, self.norm2.weight, self.norm2.bias,
+                                self.mlp_fc1.weight, self.mlp_fc1.bias,
+                                eps=c.layer_norm_eps)
+        acc = row_partial(vit_block.gelu_exact(y), self.mlp_fc2)
+        if _mlp_cut(c, self.mlp_fc2):
+            acc = reduce_from_model_group(acc, tp)
+        out = (acc + self.mlp_fc2.bias.float()).to(dt)
+        return (x.float() + out.float()).to(dt).reshape(b, s, d)
 
 
 class VisionTransformer(nn.Module):
@@ -216,24 +297,35 @@ class VisionTransformer(nn.Module):
         self.norm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps,
                               DTYPES[cfg.dtype])
 
+    def embed(self, images: torch.Tensor) -> torch.Tensor:
+        """The stem: [B, H, W, 3] NHWC images -> tokens [B, S, D]."""
+        c = self.cfg
+        nchw = images.to(DTYPES[c.dtype]).permute(0, 3, 1, 2)
+        patches = self.patch_embed(nchw).permute(0, 2, 3, 1)
+        return stem_from_patches(c, patches, self.cls_token, self.pos_embed)
+
     def forward(self, images: torch.Tensor,
-                sp: Optional[SequenceGroup] = None) -> torch.Tensor:
+                sp: Optional[SequenceGroup] = None,
+                tp: Optional[AxisGroup] = None) -> torch.Tensor:
         """``sp``: encode sequence-parallel over this group. The images
         are the same on every rank; the tokens, padded with zero rows to a
         multiple of the group size, are cut into one contiguous chunk per
         rank, the blocks run on this rank's chunk with keys >= seq_len
         masked, and the chunks are gathered back, so that every rank
-        returns the whole encode (vit.py:405-456)."""
+        returns the whole encode (vit.py:405-456). ``tp``: the blocks'
+        linears were cut by ``parallel.tensor.shard_model`` over this
+        group; every rank of it returns the whole encode."""
         c = self.cfg
-        nchw = images.to(DTYPES[c.dtype]).permute(0, 3, 1, 2)
-        patches = self.patch_embed(nchw).permute(0, 2, 3, 1)
-        x = stem_from_patches(c, patches, self.cls_token, self.pos_embed)
+        if sp is not None and tp is not None:
+            raise ValueError("sequence and tensor parallelism share the "
+                             "model axis; choose one")
+        x = self.embed(images)
         if sp is not None:
             chunk = -(-c.seq_len // sp.size)
             x = F.pad(x, (0, 0, 0, chunk * sp.size - c.seq_len))
             x = x[:, sp.rank * chunk:(sp.rank + 1) * chunk].contiguous()
         for blk in self.blocks:
-            x = blk(x, sp)
+            x = blk(x, sp, tp)
         if sp is not None:
             x = sp.all_gather_tokens(x)[:, :c.seq_len]
         return self.norm(x)

@@ -64,6 +64,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES: Dict[str, int] = {
     "ln_matmul": 0,
     "flash_mha_flat_qkv": 0,
+    "flash_mha_flat": 0,
     "ln_mlp_residual": 0,
     "flash_mha_qkv_proj": 0,
     "flash_mha_flat_xlen": 0,

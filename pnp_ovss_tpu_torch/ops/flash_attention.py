@@ -113,8 +113,15 @@ def flash_mha_flat(q2: torch.Tensor, k2: torch.Tensor, v2: torch.Tensor, *,
                    num_heads: int, out_dtype: Optional[torch.dtype] = None,
                    true_len: Optional[int] = None) -> torch.Tensor:
     """Attention on flat [B, S, H*D] q/k/v (three arrays or views) ->
-    [B, S, H*D]. ``true_len`` masks keys at or beyond it when the caller
-    carries padded rows; rows beyond it are garbage by contract."""
+    [B, S, H*D] (K2', the entry tensor parallelism takes on this rank's
+    heads; counted as ``flash_mha_flat``). ``true_len`` masks keys at or
+    beyond it when the caller carries padded rows; rows beyond it are
+    garbage by contract."""
+    return _flat(q2, k2, v2, num_heads=num_heads, out_dtype=out_dtype,
+                 true_len=true_len, counter="flash_mha_flat")
+
+
+def _flat(q2, k2, v2, *, num_heads, out_dtype, true_len, counter):
     out_dtype = out_dtype or q2.dtype
     b, s, hd = q2.shape
     tl = s if true_len is None else true_len
@@ -138,7 +145,7 @@ def flash_mha_flat(q2: torch.Tensor, k2: torch.Tensor, v2: torch.Tensor, *,
         *_flat_strides(q2, k2, v2, out), b, s, tl, num_heads, d,
         1.0 / d**0.5, _build.stream_ptr(q2))
     _build.check(lib, rc, "flash_mha_flat")
-    _build.LAUNCHES["flash_mha_flat_qkv"] += 1
+    _build.LAUNCHES[counter] += 1
     return out
 
 
@@ -219,9 +226,9 @@ def flash_mha_flat_qkv(qkv3: torch.Tensor, *, num_heads: int,
     ([q | k | v] on the channel axis): the kernel reads q/k/v as strided
     column views of the one array, so no slice is copied."""
     hd = qkv3.shape[-1] // 3
-    return flash_mha_flat(qkv3[..., :hd], qkv3[..., hd:2 * hd],
-                          qkv3[..., 2 * hd:], num_heads=num_heads,
-                          out_dtype=out_dtype, true_len=true_len)
+    return _flat(qkv3[..., :hd], qkv3[..., hd:2 * hd], qkv3[..., 2 * hd:],
+                 num_heads=num_heads, out_dtype=out_dtype, true_len=true_len,
+                 counter="flash_mha_flat_qkv")
 
 
 _KEY_BLOCK = 512  # the reference's widest k-block (``_FLAT_BLOCK_K``)

@@ -1,7 +1,11 @@
 """End-to-end segmentation runner (counterpart of
-``pnp_ovss_tpu/pipeline/runner.py``, with its sequence-parallel encode at
-data = 1 and its host parity path; without data, tensor or pipeline
-parallelism).
+``pnp_ovss_tpu/pipeline/runner.py``, with its tensor-, sequence- and
+pipeline-parallel encodes over the model axis of a process mesh and its
+host parity path).
+
+Under a mesh every rank runs a runner: the ranks of one model group on the
+same batch (they return the same results), each data group on its own
+batches, as DDP ranks do (the CLI gives each data index its records).
 
 ATTRIBUTION (per batch): salience-drop rounds (pipeline/drop.py: ViT
 encode, BERT GradCAM) -> token->class pooling ->
@@ -45,8 +49,12 @@ from pnp_ovss_tpu_torch.models.blip_itm import BlipITM
 from pnp_ovss_tpu_torch.ops import crf as crf_mod
 from pnp_ovss_tpu_torch.ops.blur import blur_and_minmax
 from pnp_ovss_tpu_torch.ops.segment_pool import pool_token_maps
-from pnp_ovss_tpu_torch.parallel.mesh import SequenceGroup
+from pnp_ovss_tpu_torch.parallel.mesh import ProcessMesh
+from pnp_ovss_tpu_torch.parallel.pipeline import (
+    keep_stage_blocks, pipeline_encode,
+)
 from pnp_ovss_tpu_torch.parallel.sequence import encode_images_sp
+from pnp_ovss_tpu_torch.parallel.tensor import shard_model
 from pnp_ovss_tpu_torch.pipeline import drop as drop_mod
 from pnp_ovss_tpu_torch.pipeline import masks as masks_mod
 
@@ -100,7 +108,8 @@ class SegmentationRunner:
     def __init__(self, cfg: PipelineConfig, model: Optional[BlipITM], *,
                  device="cuda", bucket_size: int = 192,
                  encode_parallel: Optional[str] = None,
-                 sp_group: Optional[SequenceGroup] = None):
+                 mesh: Optional[ProcessMesh] = None,
+                 pp_microbatches: Optional[int] = None):
         """``model``: a ``BlipITM`` whose ``capture_layers`` are
         ``(cfg.attribution.layer - 1,)`` (``init_blip_itm`` or
         ``from_jax_params``); it is moved to ``device``. None makes a
@@ -109,13 +118,26 @@ class SegmentationRunner:
         ``submit_batch`` cannot run. Raises when ``device`` is CUDA and
         there is no card.
 
-        ``encode_parallel``: None encodes on this process alone; "sp"
-        splits the ViT encode's tokens over ``sp_group``
-        (``parallel.mesh.make_mesh_2d``, data = 1): every rank of the
-        group runs a runner on the same model and batch, the encode
-        gathers K/V across the ranks, and every rank runs BERT, GradCAM,
-        the drop loop and the CRF on the whole batch and returns the same
-        results. "pp" (pipeline parallelism) is not ported yet."""
+        ``mesh`` (``parallel.mesh.make_mesh_2d``, ``make_mesh`` or
+        ``init_from_env``) and ``encode_parallel`` pick the JAX package's
+        strategy over the mesh's model axis; the runner shards ``model``
+        in place before it moves it to ``device``:
+
+        - None: with a model axis > 1, Megatron tensor parallelism
+          (``parallel.tensor.shard_model``: the ViT and BERT on this
+          rank's heads and slabs; GradCAM gathers the heads); on a data-
+          only mesh, or without one, the whole model on this rank;
+        - "sp": the ViT encode's tokens split over the model axis
+          (``parallel.sequence``); the weights stay whole;
+        - "pp": the ViT's block stack split into ``mesh.model`` stages
+          (``parallel.pipeline``, GPipe with ``pp_microbatches``
+          microbatches, default the depth); this rank keeps only its
+          stage's blocks.
+
+        "sp" and "pp" need a (data, model) mesh with a model axis > 1.
+        Every rank of a model group runs a runner on the same batch and
+        returns the same results; BERT (sharded under tensor parallelism),
+        the drop loop and the CRF run on every rank."""
         self.cfg = cfg
         self.device = resolve_device(device)
         if model is not None and \
@@ -128,25 +150,36 @@ class SegmentationRunner:
         if encode_parallel not in (None, "sp", "pp"):
             raise ValueError(f"encode_parallel must be None, 'sp' or 'pp'; "
                              f"got {encode_parallel!r}")
-        if encode_parallel == "pp":
-            raise NotImplementedError(
-                "encode_parallel='pp' (pipeline parallelism) is not ported")
-        if (encode_parallel == "sp") != (sp_group is not None):
-            raise ValueError("encode_parallel='sp' needs an sp_group "
-                             "(parallel.mesh.make_mesh_2d), and an sp_group "
-                             "needs encode_parallel='sp'")
+        if encode_parallel is not None and (mesh is None or mesh.model < 2):
+            raise ValueError(
+                f"encode_parallel={encode_parallel!r} needs a 2D (data, "
+                "model) mesh with a model axis > 1 "
+                "(parallel.mesh.make_mesh_2d)")
+        self.mesh = mesh
+        self.encode_parallel = encode_parallel
+        self.pp_microbatches = pp_microbatches
         self.bucket = bucket_size
         self._mean = torch.as_tensor(CLIP_MEAN, device=self.device)
         self._std = torch.as_tensor(CLIP_STD, device=self.device)
-        self.model = None if model is None else model.to(self.device)
+        self.model = None
         if model is None:
             return
-        if sp_group is None:
-            embed = self.model.encode_image
-        else:
+        axis = None if mesh is None else mesh.model_axis
+        if encode_parallel is None and mesh is not None and mesh.model > 1:
+            shard_model(model, mesh)
+        elif encode_parallel == "pp":
+            keep_stage_blocks(model.visual_encoder, axis)
+        self.model = model.to(self.device)
+        vit = self.model.visual_encoder
+        if encode_parallel == "sp":
             def embed(images):
-                return encode_images_sp(self.model.visual_encoder, images,
-                                        sp_group)
+                return encode_images_sp(vit, images, axis)
+        elif encode_parallel == "pp":
+            def embed(images):
+                return pipeline_encode(vit, images, axis,
+                                       num_microbatches=pp_microbatches)
+        else:
+            embed = self.model.encode_image
         self._round_step = drop_mod.make_split_round_step(
             embed, self._bert_gradcam,
             cfg=cfg.drop, grid=cfg.model.vit.grid,

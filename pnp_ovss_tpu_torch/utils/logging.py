@@ -50,7 +50,8 @@ class SmoothedValue:
         """All-reduce count/total across ranks (reference utils.py:48-59:
         dist.barrier + all_reduce on [count, total]); the smoothing window
         (median/avg) stays rank-local, as in the reference. The tensor
-        lives on the card under NCCL and on the CPU under gloo."""
+        lives on the card under NCCL and on the CPU under gloo. A
+        collective: call it on the main thread, on every rank."""
         if get_world_size() == 1:
             return
         device = "cuda" if dist.get_backend() == "nccl" else "cpu"
@@ -98,12 +99,15 @@ class MetricLogger:
         for k, v in kwargs.items():
             self.meters[k].update(float(v))
 
-    def synchronize_between_processes(self):
+    def synchronize_between_processes(self, names=None):
         """Sync every meter's global stats across ranks (reference
         utils.py:122-124). After this, global_avg is identical on all
-        ranks — one host's log tells the whole run's story."""
-        for meter in self.meters.values():
-            meter.synchronize_between_processes()
+        ranks — one host's log tells the whole run's story. ``names``:
+        the meters to sync, in this order, made empty where a rank has
+        none (a rank that ran no batch); the default, every meter in
+        insertion order, needs the same meters on every rank."""
+        for name in (names if names is not None else list(self.meters)):
+            self.meters[name].synchronize_between_processes()
 
     def __str__(self):
         return self.delimiter.join(

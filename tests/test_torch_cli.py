@@ -29,6 +29,7 @@ from pnp_ovss_tpu_torch import config as pcfg_mod
 from pnp_ovss_tpu_torch.cli import segment as port_cli
 from pnp_ovss_tpu_torch.data.categories import get_dataset_meta
 from pnp_ovss_tpu_torch.evalx.aggregate import aggregate
+from pnp_ovss_tpu_torch.parallel.mesh import free_port
 from tests.test_convert import (
     _retrieval_checkpoint_extras, _tiny_torch_state_dict,
 )
@@ -208,19 +209,42 @@ def test_in_the_wild_and_viz(env, tmp_path):
     assert pred.nonzero()[0].tolist() == [7, 11]  # cat, dog
 
 
-# Fixed ids keep the cases' names stable as the unported list shrinks.
+# Fixed ids keep the cases' names stable. Each case is a documented
+# outcome of the parallel flags: a model axis > 1 without the ranks of
+# --distributed raises, so does more than one model-axis strategy; --mesh
+# alone and --distributed over one rank run and write the files of the
+# plain run. ``item`` is the SystemExit's message, or None for a run.
 @pytest.mark.parametrize("flags, item", [
-    pytest.param(["--tensor_parallel", "2"], "A8", id="flags1-A8"),
-    pytest.param(["--sequence_parallel", "2"], "A8", id="flags2-A8"),
-    pytest.param(["--pipeline_parallel", "2"], "A8", id="flags3-A8"),
-    pytest.param(["--mesh"], "A8", id="flags4-A8"),
-    pytest.param(["--distributed"], "A8", id="flags5-A8"),
+    pytest.param(["--tensor_parallel", "2"], "--distributed",
+                 id="flags1-A8"),
+    pytest.param(["--sequence_parallel", "2", "--pipeline_parallel", "2"],
+                 "at most one", id="flags2-A8"),
+    pytest.param(["--pipeline_parallel", "2", "--pp_microbatches", "2"],
+                 "--distributed", id="flags3-A8"),
+    pytest.param(["--mesh"], None, id="flags4-A8"),
+    pytest.param(["--distributed", "--mesh"], None, id="flags5-A8"),
 ])
-def test_unported_flags_raise(env, tmp_path, flags, item):
-    with pytest.raises(SystemExit, match=item):
-        port_cli.main(env["common"] + ["--save_path", str(tmp_path),
-                                       "--device", "cpu"] + flags)
-    assert not os.listdir(tmp_path)
+def test_unported_flags_raise(env, tmp_path, monkeypatch, flags, item):
+    args = env["common"] + ["--save_path", str(tmp_path / "out"),
+                            "--device", "cpu"] + flags
+    if item is not None:
+        with pytest.raises(SystemExit, match=item):
+            port_cli.main(args)
+        assert not os.listdir(tmp_path)
+        return
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                     MASTER_ADDR="localhost",
+                     MASTER_PORT=str(free_port())).items():
+        monkeypatch.setenv(k, v)
+    summary = port_cli.main(args)
+    assert not torch.distributed.is_initialized()
+    assert ("global_avg" in summary) == ("--distributed" in flags)
+    for sub in HIST_DIRS:
+        got, want = _hists(tmp_path / "out", sub), _hists(
+            env["root"] / "port", sub)
+        assert sorted(got) == sorted(want) and len(got) == N_IMG
+        for name in got:
+            np.testing.assert_array_equal(got[name], want[name])
 
 
 def test_cuda_without_a_card_raises(env, tmp_path, monkeypatch):

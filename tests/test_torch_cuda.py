@@ -114,7 +114,7 @@ def test_flash_entries_match_plain_across_the_ring(cuda, entry, d):
     qkv = _randn(gen, b, s, 3 * hd).to(torch.bfloat16)
     q, k, v = qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:]
     lo, hi = 37, 400  # the xlen entry's query chunk
-    counter = {"qkv": "flash_mha_flat_qkv", "flat": "flash_mha_flat_qkv",
+    counter = {"qkv": "flash_mha_flat_qkv", "flat": "flash_mha_flat",
                "xlen": "flash_mha_flat_xlen", "bhsd": "flash_mha"}[entry]
     before = _build.LAUNCHES[counter]
     if entry == "bhsd":
@@ -984,3 +984,58 @@ def test_narrow_clip_encode_image_on_the_card_matches_cpu(cuda):
     want = model.cpu().encode_image(images)
     assert torch.isfinite(got).all() and got.shape == (4, 64)
     assert (got - want).abs().max().item() <= chip_smoke.TOL_CLIP_NARROW
+
+
+def test_flash_flat_on_a_head_slab_at_an_odd_offset(cuda):
+    """K2' as tensor parallelism calls it: q, k and v are strided views
+    of two heads starting at head 1 of a 5-head qkv projection (a rank's
+    slab at an odd head offset), against the plain version; counted as
+    ``flash_mha_flat``."""
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    b, s, h, d, lo, n = 2, 150, 5, 64, 1, 2
+    hd = h * d
+    qkv = _randn(gen, b, s, 3 * hd).to(torch.bfloat16)
+    q, k, v = (qkv[..., i * hd + lo * d:i * hd + (lo + n) * d]
+               for i in range(3))
+    before = _build.LAUNCHES["flash_mha_flat"]
+    out = flash_attention.flash_mha_flat(q, k, v, num_heads=n)
+    assert _build.LAUNCHES["flash_mha_flat"] == before + 1
+    ref = flash_attention.attention_plain(q, k, v, num_heads=n, true_len=s,
+                                          out_dtype=torch.float32)
+    assert out.shape == (b, s, n * d)
+    err = (out.float() - ref).abs().max().item()
+    assert err < 5e-3, err
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_tp_block_on_one_rank_matches_unsharded(cuda, fused):
+    """The tensor-parallel block's value flow on a model axis of one rank
+    (both reduces are the identity there): K1's replicated qkv, K2' on
+    the column views, proj as a row product and (fused) LN2 + fc1 in K1
+    and fc2 as a row product, against the block's own unsharded forward
+    (K2 + cuBLAS proj + K3). The sums run in other orders: within four
+    bf16 ulps of the largest output. K3 is not launched under tensor
+    parallelism."""
+    from pnp_ovss_tpu_torch.models.vit import ViTBlock, ViTBlockFused
+    from pnp_ovss_tpu_torch.parallel.mesh import AxisGroup
+
+    cfg = ViTConfig(image_size=192, hidden_size=256, num_layers=1,
+                    num_heads=4)
+    torch.manual_seed(2)
+    blk = (ViTBlockFused if fused else ViTBlock)(cfg).to(cuda)
+    blk.requires_grad_(False)
+    for p in blk.parameters():
+        p.normal_(0, 0.05)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = _randn(gen, 2, cfg.seq_len, 256).to(torch.bfloat16)
+    with torch.no_grad():
+        want = blk(x)
+        _build.reset_launch_counts()
+        got = blk(x, tp=AxisGroup(None, 1, 0))
+    n = dict(_build.LAUNCHES)
+    assert n["flash_mha_flat"] == 1 and n["flash_mha_flat_qkv"] == 0
+    assert n["ln_mlp_residual"] == 0
+    assert n["ln_matmul"] == (2 if fused else 0)
+    ulp = 2.0 ** (torch.floor(torch.log2(want.float().abs().max())) - 7)
+    err = (got.float() - want.float()).abs().max()
+    assert err <= 4 * ulp, (err.item(), ulp.item())

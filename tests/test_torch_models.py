@@ -160,7 +160,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for new in ("ops/host_post.py", "ops/crf_host.py", "cli/search.py",
                 "cli/token_contrast.py", "search/reward.py",
                 "search/optimizer.py", "models/clip.py", "text/bpe.py",
-                "cli/labeler.py"):
+                "cli/labeler.py", "parallel/tensor.py",
+                "parallel/pipeline.py", "entry.py"):
         assert PKG / new in files, new
     repo = PKG.parent
     card_scripts = [repo / "chip_smoke.py",

@@ -31,7 +31,6 @@ from pnp_ovss_tpu_torch.models.blip_itm import init_blip_itm
 from pnp_ovss_tpu_torch.models.convert import from_jax_params
 from pnp_ovss_tpu_torch.models.vit import VisionTransformer
 from pnp_ovss_tpu_torch.ops import flash_attention as port_flash
-from pnp_ovss_tpu_torch.parallel.mesh import make_mesh_2d
 from pnp_ovss_tpu_torch.pipeline.runner import SegmentationRunner
 from test_torch_sp_ranks import run_ranks
 
@@ -204,9 +203,33 @@ def test_sp_runner_labels_match_unsharded_runner(sp2):
     assert len(np.unique(ranks[0]["runner"].labels_agg)) > 1
 
 
+def mesh_axes(mesh):
+    """A rank's place in its mesh, and the sum of the global ranks over
+    each of its two groups."""
+    from torch import distributed as dist
+
+    d = torch.tensor([float(mesh.rank)])
+    m = torch.tensor([float(mesh.rank)])
+    dist.all_reduce(d, group=mesh.data_axis.group)
+    dist.all_reduce(m, group=mesh.model_axis.group)
+    return dict(rank=mesh.rank, data=mesh.data, model=mesh.model,
+                data_rank=mesh.data_rank, model_rank=mesh.model_rank,
+                data_sum=d.item(), model_sum=m.item(),
+                model_peers=[mesh.model_axis.global_rank(i)
+                             for i in range(mesh.model)])
+
+
 def _data_parallel(tmp):
-    make_mesh_2d(2, ["cpu"] * 4, rank=0,
-                 init_method=f"file://{tmp / 'store'}")
+    """data = 2 x model = 2 over four CPU ranks: global rank r = d * 2 +
+    m, the data group {m, 2 + m}, the model group {2d, 2d + 1}."""
+    ranks = run_ranks({"mesh": ("call", mesh_axes)}, ["cpu"] * 4, tmp,
+                      model_parallel=2)
+    for r, out in enumerate(ranks):
+        d, m = divmod(r, 2)
+        assert out["mesh"] == dict(
+            rank=r, data=2, model=2, data_rank=d, model_rank=m,
+            data_sum=float(m + 2 + m), model_sum=float(4 * d + 1),
+            model_peers=[2 * d, 2 * d + 1])
 
 
 def _tiny_runner(**kw):
@@ -218,14 +241,18 @@ def _tiny_runner(**kw):
 
 
 @pytest.mark.parametrize("call,exc", [
-    (_data_parallel, NotImplementedError),
-    (lambda tmp: _tiny_runner(encode_parallel="pp"), NotImplementedError),
+    (_data_parallel, None),
+    (lambda tmp: _tiny_runner(encode_parallel="pp"), ValueError),
     (lambda tmp: _tiny_runner(encode_parallel="sp"), ValueError)],
     ids=["data>1", "pp", "no_group"])
 def test_unported_parallelism_raises(call, exc, tmp_path):
-    """data > 1 and pipeline parallelism are not ported; "sp" without a
-    group is an error. Nothing joins a process group on the way."""
-    with pytest.raises(exc):
+    """A data > 1 mesh joins (four spawned ranks at data 2 x model 2, each
+    in its data and model group); "pp" and "sp" without a mesh raise, as
+    the JAX runner does (a 2D mesh is needed), and join no process group
+    on the way."""
+    if exc is None:
         call(tmp_path)
+    else:
+        with pytest.raises(exc, match="2D"):
+            call(tmp_path)
     assert not torch.distributed.is_initialized()
-
