@@ -304,7 +304,7 @@ def kernels_vs_plain(cfg):
     torch.cuda.synchronize()
     qh, kh_, vh = (x.view(b, s, h, d).transpose(1, 2) for x in (q, k, v))
     nbytes = qkv.numel() * 2 + b * s * hd * 2
-    bms, by = bound_ms(nbytes, 4.0 * b * h * s * s * d, BF16_FLOPS)
+    bms, by = flash_bound_ms(nbytes, b, h, s, s, d)
     rows["flash_mha_flat_qkv"] = with_rate(dict(
         name="flash_mha_flat_qkv", route="cuda",
         source="pnp_ovss_tpu_torch/csrc/flash_attention.cu",
@@ -341,7 +341,7 @@ def kernels_vs_plain(cfg):
     qlh, klh, vlh = (x.view(b, s, hl, d).transpose(1, 2)
                      for x in (ql, kl, vl))
     nbytes = 4 * b * s * w * 2
-    bms, by = bound_ms(nbytes, 4.0 * b * hl * s * s * d, BF16_FLOPS)
+    bms, by = flash_bound_ms(nbytes, b, hl, s, s, d)
     rows["flash_mha_flat"] = with_rate(dict(
         name="flash_mha_flat", route="cuda",
         source="pnp_ovss_tpu_torch/csrc/flash_attention.cu",
@@ -466,10 +466,12 @@ def clip_flash_kernel(gen) -> dict:
     torch.cuda.synchronize()
     qh, kh, vh = (x.view(b, s, h, d).transpose(1, 2) for x in (q, k, vv))
     nbytes = qkv.numel() * 2 + b * s * hd * 2
-    bms, by = bound_ms(nbytes, 4.0 * b * h * s * s * d, BF16_FLOPS)
+    bms, by = flash_bound_ms(nbytes, b, h, s, s, d)
     print(f"  flash_mha_flat_qkv CLIP: bound by bytes "
-          f"{1e3 * nbytes / HBM_BYTES_PER_S:.4f} ms, by operations "
-          f"{1e3 * 4.0 * b * h * s * s * d / BF16_FLOPS:.4f} ms", flush=True)
+          f"{1e3 * nbytes / HBM_BYTES_PER_S:.4f} ms, by products "
+          f"{1e3 * 4.0 * b * h * s * s * d / BF16_FLOPS:.4f} ms, by "
+          f"exponentials {1e3 * b * h * s * s / EX2_PER_S:.4f} ms",
+          flush=True)
     return with_rate(dict(
         shape=f"336 px CLIP ViT-L/14 [{b}, {s}, {3 * hd}]", max_abs_err=err,
         ms=time_ms(lambda: flash_attention.flash_mha_flat_qkv(
@@ -555,6 +557,35 @@ def k8_bound_ms(n: int, m: int, c: int):
     ms, by = bound_ms(nbytes, 15.0 * n * m, F32_FLOPS,
                       (2.0 * n * m * c, BF16_FLOPS), (1.0 * n * m, EX2_PER_S))
     return ms, by, nbytes
+
+
+def flash_bound_ms(nbytes: float, b: int, h: int, sq: int, l: int, d: int,
+                   more_flops: float = 0.0):
+    """The flash kernel's bound at b x h heads of sq query rows over l
+    keys of head dim d: its bytes against the two bf16 products (with
+    ``more_flops`` of other tensor-core work, K4's proj) and one expf a
+    score on the multi-function units, which run at the same time."""
+    return bound_ms(nbytes, 4.0 * b * h * sq * l * d + more_flops,
+                    BF16_FLOPS, (1.0 * b * h * sq * l, EX2_PER_S))
+
+
+def flash_sass_counts(paths) -> dict:
+    """Instruction counts in the built flash libraries' SASS (cuobjdump):
+    HGMMA (wgmma), HMMA (mma.sync) and LDGSTS (cp.async)."""
+    from pnp_ovss_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    counts = {}
+    for name in ("flash_attention", "flash_qkv_proj"):
+        sass = subprocess.run([cuobjdump, "-sass", str(paths[name])],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        counts[name] = {op: sum(line.split()[1:2] == [op] or
+                                f" {op}." in line or f" {op} " in line
+                                for line in sass.splitlines()
+                                if "/*" in line)
+                        for op in ("HGMMA", "HMMA", "LDGSTS")}
+    return counts
 
 
 def kernel_matmul_check(cfg):
@@ -786,14 +817,22 @@ def fused_vit_kernels(cfg, cfg768):
     print(f"  flash_mha_qkv_proj proj vs x + (F.linear(out, Wp) + bp): "
           f"{ne.sum().item()} of {ne.numel()} values differ", flush=True)
     nbytes = 2 * (qkv.numel() + 2 * x.numel() + wp.numel() + d)
-    ops = 4.0 * b * h * s * s * hd + 2.0 * b * s * d * d
-    bms, by = bound_ms(nbytes, ops, BF16_FLOPS)
+    bms, by = flash_bound_ms(nbytes, b, h, s, s, hd,
+                             more_flops=2.0 * b * s * d * d)
+    # The library's route to the same function (timed, used nowhere):
+    # SDPA on the heads, then cuBLAS's proj product with the bias, and
+    # the residual.
+    qh, kh, vh = (t.view(b, s, h, hd).transpose(1, 2) for t in (q, k, v))
+    k4_library = lambda: x + F.linear(
+        F.scaled_dot_product_attention(qh, kh, vh).transpose(1, 2)
+        .reshape(b, s, d), wp, bp)
     row = dict(name="flash_mha_qkv_proj", route="cuda",
                source="pnp_ovss_tpu_torch/csrc/flash_qkv_proj.cu",
                replaces="pnp_ovss_tpu/ops/flash_attention.py:506",
                max_abs_err=e4, ms=time_ms(k4, 10),
                plain_ms=time_ms(k4_plain, 2), bound_ms=bms, bound_by=by,
-               library_ms=None, unfused_ms=time_ms(k4_unfused, 10),
+               library_ms=time_ms(k4_library, 10),
+               unfused_ms=time_ms(k4_unfused, 10),
                attention_ms=time_ms(
                    lambda: flash_attention.flash_mha_flat_qkv(
                        qkv, num_heads=h), 10),
@@ -803,9 +842,11 @@ def fused_vit_kernels(cfg, cfg768):
     for row in lines:
         parts = (f", attention {row['attention_ms']:.4f} + proj "
                  f"{row['proj_ms']:.4f}" if "proj_ms" in row else "")
+        lib = (f", SDPA + cuBLAS proj {row['library_ms']:.4f}"
+               if row["library_ms"] is not None else "")
         print(f"  {row['name']} {row['shape']}: {row['ms']:.4f} ms (plain "
               f"{row['plain_ms']:.4f}, unfused route "
-              f"{row['unfused_ms']:.4f}{parts}, bound "
+              f"{row['unfused_ms']:.4f}{parts}{lib}, bound "
               f"{row['bound_ms']:.4f} by {row['bound_by']})", flush=True)
     return rows
 
@@ -872,7 +913,7 @@ def xlen_and_bhsd_kernels(cfg, cfg768):
         kh, vh = (t[:, :s].unflatten(-1, (h, d)).transpose(1, 2)
                   for t in (k, v))
         nbytes = 2 * (2 * b * chunk * hd + 2 * b * s * hd)
-        bms, by = bound_ms(nbytes, 4.0 * b * h * chunk * s * d, BF16_FLOPS)
+        bms, by = flash_bound_ms(nbytes, b, h, chunk, s, d)
         k7.append(with_rate(dict(
             name="flash_mha_flat_xlen", route="cuda",
             source="pnp_ovss_tpu_torch/csrc/flash_attention.cu",
@@ -907,7 +948,7 @@ def xlen_and_bhsd_kernels(cfg, cfg768):
         del out, ref
         torch.cuda.synchronize()
         nbytes = 4 * 2 * b * hh * s * dd
-        bms, by = bound_ms(nbytes, 4.0 * b * hh * s * s * dd, BF16_FLOPS)
+        bms, by = flash_bound_ms(nbytes, b, hh, s, s, dd)
         k9.append(with_rate(dict(
             name="flash_mha", route="cuda",
             source="pnp_ovss_tpu_torch/csrc/flash_attention.cu",
@@ -2898,6 +2939,12 @@ def main() -> int:
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "arning")):
                 print(f"  {name}: {line.strip()}", flush=True)
+    # The flash kernel runs on wgmma, with no mma.sync and no cp.async.
+    for name, n in flash_sass_counts(paths).items():
+        print(f"  {name} SASS: {n['HGMMA']} HGMMA, {n['HMMA']} HMMA, "
+              f"{n['LDGSTS']} LDGSTS", flush=True)
+        if n["HGMMA"] == 0 or n["HMMA"] or n["LDGSTS"]:
+            raise SystemExit(f"FAIL: {name} is not on wgmma alone: {n}")
 
     cfg, cfg768 = full_config(336), full_config(LEG_768[0])
     t0 = time.perf_counter()

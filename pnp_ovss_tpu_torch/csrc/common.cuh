@@ -16,7 +16,7 @@ extern "C" const char* pnp_error_string(int err) {
 namespace pnp {
 
 // Two floats -> one register of two bf16 (round to nearest even); the
-// lower-index element sits in the low half, as mma fragments expect.
+// lower-index element sits in the low half, as wgmma fragments expect.
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -25,23 +25,6 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 __device__ __forceinline__ float2 unpack_bf16x2(uint32_t r) {
   __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&r);
   return __bfloat1622float2(v);
-}
-
-// D += A(16x16, row) * B(16x8, col), bf16 operands, f32 accumulators.
-// Fragment layout (g = lane / 4, t = lane % 4):
-//   a[0]: A[g][2t..2t+1]     a[1]: A[g+8][2t..2t+1]
-//   a[2]: A[g][2t+8..2t+9]   a[3]: A[g+8][2t+8..2t+9]
-//   b0:   B[2t..2t+1][g]     b1:   B[2t+8..2t+9][g]
-//   d[0..1]: D[g][2t..2t+1]  d[2..3]: D[g+8][2t..2t+1]
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
-                                               const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 }  // namespace pnp

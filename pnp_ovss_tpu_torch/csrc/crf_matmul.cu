@@ -72,7 +72,6 @@ constexpr int kBJ = 64;                  // j columns a stage: one swizzle row
 constexpr int kFLd = 12;                 // floats a packed feature row
 constexpr int kStages = 4;               // ring depth
 constexpr int kFTile = kBJ * kFLd * 4;   // bytes of a stage's features
-constexpr long long kWaitCycles = 1ll << 32;  // ~2 s before a stage traps
 
 // Bytes of a stage (the v^T tile first: a 1024-byte multiple) and of a
 // block's dynamic shared memory (the ring, its barriers, a flag, and room
@@ -82,26 +81,6 @@ constexpr int kStageBytes = W * kBJ * 2 + kFTile;
 template <int W>
 constexpr int kSmemBytes =
     kStages * kStageBytes<W> + kStages * 8 + 16 + 1024;
-
-// Waits for the phase of parity `parity` of a stage's barrier; traps (a
-// launch error, not a hang) if the bytes it expects never arrive.
-__device__ __forceinline__ void wait_stage(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = pnp::smem_addr(bar);
-  const long long t0 = clock64();
-  uint32_t done = 0;
-  for (uint32_t spin = 1; !done; ++spin) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (!done && spin % 1024 == 0 && clock64() - t0 > kWaitCycles) __trap();
-  }
-}
 
 // 2^x, flushing results below 2^-126 to 0.
 __device__ __forceinline__ float exp2_ftz(float x) {
@@ -207,7 +186,8 @@ __global__ void __launch_bounds__(kThreads, (F == 5 && W <= 64) ? 3 : 2)
     for (int i = 0; i < kTiles; ++i) pnp::hopper::fence_regs(acc[i]);
     __syncthreads();
     if (tid == 0 && it + kStages - 1 < n_it) load(it + kStages - 1);
-    wait_stage(&full[it % kStages], (it / kStages) & 1);
+    pnp::hopper::mbar_wait_or_trap(&full[it % kStages],
+                                   (it / kStages) & 1);
 
     const float* fs = f_tile(it % kStages);
 #pragma unroll
@@ -314,20 +294,6 @@ __global__ void __launch_bounds__(kThreads, (F == 5 && W <= 64) ? 3 : 2)
         if (col < C) out[row * C + col] = acc[i][4 * j + 2 * h];
         if (col + 1 < C) out[row * C + col + 1] = acc[i][4 * j + 2 * h + 1];
       }
-}
-
-// A launch whose one stage never fills: it traps through wait_stage. Lets
-// a test see that a stalled ring ends the launch with an error.
-__global__ void stall_kernel() {
-  __shared__ uint64_t bar;
-  if (threadIdx.x == 0) {
-    pnp::hopper::mbar_init(&bar, 1);
-    pnp::hopper::mbar_fence_init();
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) pnp::hopper::mbar_expect_tx(&bar, 16);
-  __syncthreads();
-  wait_stage(&bar, 0);
 }
 
 // Tensor map of a row-major [rows, cols] array (element `type` of `elem`
@@ -458,6 +424,7 @@ extern "C" int gaussian_kernel_matmul(const void* fi, const void* fj,
 // One launch that stalls on a stage whose bytes never arrive; the launch
 // traps after ~2 s and the next synchronisation reports the error.
 extern "C" int gaussian_kernel_matmul_stall(void* stream) {
-  stall_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  pnp::hopper::stall_kernel<0><<<1, 32, 0,
+                                 static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

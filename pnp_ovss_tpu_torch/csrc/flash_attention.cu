@@ -20,14 +20,15 @@
 // patches + CLS at 336 px, H=16, D=64):
 // qkv is read once (95 MB) and out written once (32 MB), 127 MB at
 // 3.35 TB/s = 38 us; the two products are 28 GFLOP, 28 us at 989 TFLOP/s
-// bf16. Memory bound, narrowly. K7 at 336 px, sp = 2 (Sq = 221 rows over
+// bf16, and the 110 M exponentials 26 us on the multi-function units.
+// Memory bound, narrowly. K7 at 336 px, sp = 2 (Sq = 221 rows over
 // Skv = 442 keys) moves about 95 MB a rank (28 us); at 768 px (B=12,
 // Sq = 1153, L = 2305) its products, 131 GFLOP, bound it at 132 us, as
-// they bound K9 at S = 2305 (261 GFLOP, 264 us). At these sizes the time
-// goes to the two mma.sync products, the exponentials and the K/V tile
-// traffic from L2, not to device memory.
+// they bound K9 at S = 2305 (261 GFLOP, 264 us), with the exponentials
+// close behind (122 and 244 us at D = 64).
 //
-// Design: flash_kernel.cuh, whose kernel K4 also runs.
+// Design: flash_kernel.cuh (wgmma and TMA, warp-specialised), whose
+// kernel K4 also runs.
 
 #include "flash_kernel.cuh"
 
@@ -36,7 +37,7 @@ using pnp::flash::View;
 
 // K2. q/k/v/o point at head 0 of their flat [B, S, H*D] views; *_bs / *_rs
 // are batch and row strides in elements. Needs 16-byte aligned rows
-// (strides and pointers).
+// (strides and pointers), as TMA does.
 extern "C" int flash_mha_flat_bf16(const void* q, const void* k,
                                    const void* v, void* o, long long q_bs,
                                    long long q_rs, long long k_bs,
@@ -79,4 +80,12 @@ extern "C" int flash_mha_bhsd_bf16(const void* q, const void* k,
   return launch_flat(q, k, v, o, View{q_bs, q_hs, q_rs},
                      View{k_bs, k_hs, k_rs}, View{v_bs, v_hs, v_rs},
                      View{o_bs, o_hs, o_rs}, B, S, S, H, D, scale, stream);
+}
+
+// A launch whose one ring stage never fills: it traps (hopper.cuh's
+// stall_kernel, through the wait the flash kernel's ring uses).
+extern "C" int flash_mha_stall(void* stream) {
+  pnp::hopper::stall_kernel<0><<<1, 32, 0,
+                                 static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,7 @@
-// Hopper building blocks of the port's wgmma kernels (sm_90a): mbarriers,
-// TMA tile loads, 128-byte-swizzled shared-memory descriptors, wgmma and
-// register reallocation between warpgroups. Plain PTX, no CuTe.
+// Hopper building blocks of the port's wgmma kernels (sm_90a): mbarriers
+// (also a wait that traps), named barriers, TMA tile loads,
+// 128-byte-swizzled shared-memory descriptors (K-major and MN-major),
+// wgmma and register reallocation between warpgroups. Plain PTX, no CuTe.
 #pragma once
 
 #include <cuda.h>
@@ -54,6 +55,61 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// Whether the phase of parity `parity` of the barrier has completed
+// (waits a while in hardware before it says no).
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
+                                              uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// As mbar_wait, but traps (a launch error, not a hang) once ~2 s (2^32
+// clocks) have passed without the phase completing: a ring whose bytes
+// never arrive ends the launch instead of holding the card.
+__device__ __forceinline__ void mbar_wait_or_trap(uint64_t* bar,
+                                                  uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  for (uint32_t spin = 1; !mbar_try_wait(bar, parity); ++spin)
+    if (spin % 1024 == 0 && clock64() - t0 > (1ll << 32)) __trap();
+}
+
+// One block whose barrier waits for 16 bytes that never come: the wait
+// traps after ~2 s and the next synchronisation reports the error. Lets
+// a test see that a stalled ring ends a launch instead of hanging the
+// card (a template, so that only the libraries that launch it hold it).
+template <int = 0>
+__global__ void stall_kernel() {
+  __shared__ uint64_t bar;
+  if (threadIdx.x == 0) {
+    mbar_init(&bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) mbar_expect_tx(&bar, 16);
+  __syncthreads();
+  mbar_wait_or_trap(&bar, 0);
+}
+
+// Named barriers 1..15 over `n` threads (a multiple of 32): sync waits
+// for the other threads' arrivals, arrive does not wait.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
 // TMA: the box at (c0 inner, c1 outer) of the tensor map into shared
 // memory at dst, completing `bar`'s transaction count. Out-of-range
 // elements are written as zeros.
@@ -67,6 +123,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* tm,
       : "memory");
 }
 
+// TMA: the box at (c0 innermost, .., c3 outermost) of a 4-D tensor map.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* tm,
+                                            int c0, int c1, int c2, int c3,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(tm)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // wgmma descriptor of a K-major tile written by TMA with 128-byte swizzle:
 // rows of 64 bf16 (128 bytes), 8-row groups 1024 bytes apart; the tile
 // must start on a 1024-byte boundary. Advancing k by 16 elements adds 2
@@ -74,6 +142,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* tm,
 __device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
   const uint64_t addr = smem_addr(tile);
   return ((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+// wgmma descriptor of an MN-major B operand written by TMA with 128-byte
+// swizzle: rows of 64 bf16 along N (128 bytes), one row per k, 8-row
+// groups of k 1024 bytes apart (the stride byte offset); the next 64
+// columns of N start `lbo` bytes further (the leading byte offset). The
+// tile must start on a 1024-byte boundary; advancing k by 16 adds 128
+// (2048 bytes). Used with wgmma_rs<W, 1> (B transposed).
+__device__ __forceinline__ uint64_t desc_sw128_mn(const void* tile, int lbo) {
+  const uint64_t addr = smem_addr(tile);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
          (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
 }
 
@@ -166,8 +246,9 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
       : "l"(da), "l"(db), "r"(1));
 }
 
-// Keeps the compiler from reusing A fragment registers ([S][T] fragments
-// of 4) before the asynchronous wgmma that reads them is known to be done.
+// Keeps the compiler from reusing A fragment registers ([S][T] or [S]
+// fragments of 4) before the asynchronous wgmma that reads them is known
+// to be done.
 template <int S, int T>
 __device__ __forceinline__ void fence_a(uint32_t (&a)[S][T][4]) {
 #pragma unroll
@@ -178,16 +259,27 @@ __device__ __forceinline__ void fence_a(uint32_t (&a)[S][T][4]) {
       for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[s][i][j])::"memory");
 }
 
-// d (64 x W, f32) += A (64 x 16, bf16 registers, mma.sync's per-warp
-// fragment layout) * B (16 x W, bf16 K-major smem descriptor), for W in
-// {8, 16, 32, 48, 64, 96, 128}. Thread T holds d[4j], d[4j + 1] at row
-// 16 (T / 32) + (T % 32) / 4, columns 8j + 2 (T % 4) + {0, 1}, and
-// d[4j + 2], d[4j + 3] eight rows below.
-template <int W>
-__device__ __forceinline__ void wgmma_rs(float (&d)[W / 2],
-                                         const uint32_t (&a)[4], uint64_t db);
+template <int S>
+__device__ __forceinline__ void fence_a(uint32_t (&a)[S][4]) {
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[s][j])::"memory");
+}
 
-// wgmma_rs<W>'s operands: PNP_RS_D_n lists d[0..n) as "+f" outputs,
+// d (64 x W, f32) += A (64 x 16, bf16 registers, mma.sync's per-warp
+// fragment layout) * B (16 x W, bf16 smem descriptor), for W in
+// {8, 16, 32, 48, 64, 96, 128}; d = A * B alone where `acc` is 0. B is
+// K-major (desc_sw128) for TB = 0 and MN-major (desc_sw128_mn) for
+// TB = 1. Thread T holds d[4j], d[4j + 1] at row 16 (T / 32) + (T % 32) / 4,
+// columns 8j + 2 (T % 4) + {0, 1}, and d[4j + 2], d[4j + 3] eight rows
+// below.
+template <int W, int TB = 0>
+__device__ __forceinline__ void wgmma_rs(float (&d)[W / 2],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int acc = 1);
+
+// wgmma_rs<W, TB>'s operands: PNP_RS_D_n lists d[0..n) as "+f" outputs,
 // PNP_RS_S_n names them "%0, ..., %(n-1)"; the four A registers, the
 // descriptor and the accumulate flag follow as %n..%(n+5).
 #define PNP_RS_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
@@ -211,21 +303,24 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[W / 2],
 #define PNP_RS_S_64                                                      \
   PNP_RS_S_48 ", %48, %49, %50, %51, %52, %53, %54, %55"                 \
               ", %56, %57, %58, %59, %60, %61, %62, %63"
-#define PNP_WGMMA_RS(W, N, A0, A1, A2, A3, DB, ONE)                      \
+#define PNP_WGMMA_RS_TB(W, TB, N, A0, A1, A2, A3, DB, ACC)               \
   template <>                                                            \
-  __device__ __forceinline__ void wgmma_rs<W>(                           \
-      float(&d)[N], const uint32_t(&a)[4], uint64_t db) {                \
+  __device__ __forceinline__ void wgmma_rs<W, TB>(                       \
+      float(&d)[N], const uint32_t(&a)[4], uint64_t db, int acc) {       \
     asm volatile(                                                        \
         "{\n"                                                            \
         ".reg .pred p;\n"                                                \
-        "setp.ne.b32 p, %" #ONE ", 0;\n"                                 \
+        "setp.ne.b32 p, %" #ACC ", 0;\n"                                 \
         "wgmma.mma_async.sync.aligned.m64n" #W "k16.f32.bf16.bf16 {"     \
         PNP_RS_S_##N "}, {%" #A0 ", %" #A1 ", %" #A2 ", %" #A3 "}, %" #DB \
-        ", p, 1, 1, 0;\n"                                                \
+        ", p, 1, 1, " #TB ";\n"                                          \
         "}\n"                                                            \
         : PNP_RS_D_##N                                                   \
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));  \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc)); \
   }
+#define PNP_WGMMA_RS(W, N, A0, A1, A2, A3, DB, ACC)   \
+  PNP_WGMMA_RS_TB(W, 0, N, A0, A1, A2, A3, DB, ACC)   \
+  PNP_WGMMA_RS_TB(W, 1, N, A0, A1, A2, A3, DB, ACC)
 PNP_WGMMA_RS(8, 4, 4, 5, 6, 7, 8, 9)
 PNP_WGMMA_RS(16, 8, 8, 9, 10, 11, 12, 13)
 PNP_WGMMA_RS(32, 16, 16, 17, 18, 19, 20, 21)
@@ -234,6 +329,7 @@ PNP_WGMMA_RS(64, 32, 32, 33, 34, 35, 36, 37)
 PNP_WGMMA_RS(96, 48, 48, 49, 50, 51, 52, 53)
 PNP_WGMMA_RS(128, 64, 64, 65, 66, 67, 68, 69)
 #undef PNP_WGMMA_RS
+#undef PNP_WGMMA_RS_TB
 #undef PNP_RS_D4
 #undef PNP_RS_D8
 #undef PNP_RS_D16

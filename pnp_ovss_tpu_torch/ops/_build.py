@@ -35,6 +35,7 @@ SOURCES: Dict[str, Dict[str, list]] = {
         "flash_mha_flat_bf16": [_P] * 4 + [_L] * 8 + [_I] * 5 + [_F, _P],
         "flash_mha_xlen_bf16": [_P] * 4 + [_L] * 8 + [_I] * 6 + [_F, _P],
         "flash_mha_bhsd_bf16": [_P] * 4 + [_L] * 12 + [_I] * 4 + [_F, _P],
+        "flash_mha_stall": [_P],
     },
     "crf_materialize": {
         "gaussian_kernel_materialize": [_P, _P, _P, _I, _I, _I, _I, _I, _P],

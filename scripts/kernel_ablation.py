@@ -5,7 +5,7 @@ and K4 (flash_mha_qkv_proj), the flash kernel (K2/K7/K9) and the CRF's K5
 (gaussian_kernel_matmul) on one GPU: each is rebuilt with one part of its
 work taken out, or with another block shape, and timed at its main-path
 shapes (336 px; K4 at 768 px, B = 12, S = 2305; the flash kernel also at
-S = 2305 with head dim 64 and 128; K5 and K6 at chip_smoke.py's shapes,
+the CLIP scorer's [8, 577] and at S = 2305 with head dim 64 and 128; K5 and K6 at chip_smoke.py's shapes,
 M = 2304 anchors, N = 36864 pixels, R = 64, v = 2, c = 29; K8 at
 chip_smoke.py's four shapes) beside the full kernel.
 
@@ -32,11 +32,24 @@ their outputs are wrong by design and only their times are read):
   of the two (the proj on head outputs of an earlier full call);
   ``proj_only_rows2`` / ``_rows8`` the proj with 2 or 8 rows of the
   residual in flight per epilogue thread in place of 4 (outputs right);
-- flash kernel (outputs stay right), each at one head dim (``d64_`` /
-  ``d128_``): ``minbN`` caps registers for N blocks an SM in place of 4
-  (D = 64) or 3 (D = 128), ``rb2`` gives each warp two blocks of 16 query
-  rows, ``warps8`` a block 8 warps in place of 4, ``stages3`` a ring of 3
-  K/V tiles in place of 2;
+- flash kernel (outputs right, their error against the plain version
+  printed at 336 px and the CLIP shape): ``no_pingpong`` lets two
+  consumer warpgroups issue their products without taking turns,
+  ``turns3`` makes three take turns too, ``one_consumer`` a block of one
+  consumer (64 query rows a K/V tile), ``two_consumers`` two (128 rows)
+  in place of three at D = 64 and S >= 1024, ``three_consumers`` three
+  (192 rows) at D = 64 at every S, ``keys128`` 128-key tiles in place of
+  64 (a ring of 2 at D = 128; another per-row arithmetic), ``stages2`` /
+  ``stages4`` rings of 2 / 4 stages in place of 6 (D = 64; ``stages2``
+  also 2 in place of 4 at D = 128), ``d128_stages6`` 6 at D = 128,
+  ``ex2`` the exponent as one FFMA and one ex2.approx in place of expf
+  (right within the kernel's bar, but it moves chip_smoke.py's 3-head
+  narrow pipeline past its bar), ``no_pin`` leaves the compiler free to
+  sink the softmax past the wait for P V, ``always_rescale`` multiplies
+  o by alpha also where every alpha of a warp is 1; outputs wrong by
+  design: ``no_exp`` takes the score difference itself as P (no
+  exponentials), ``no_pv`` skips the P V products, ``no_qk`` the QK^T
+  products;
 - K8 (each at chip_smoke.py's four shapes: the exact CRF's message,
   C = 58, and degree, C = 1, and both Nystrom shapes): ``no_ex2`` takes
   the exponent itself as k, ``no_mma`` replaces the products by a
@@ -98,6 +111,17 @@ _GEMM = "wgmma_gemm.cuh"
 _FLASH = "flash_kernel.cuh"
 _NO_EPILOGUE = (_GEMM, "for (int row = etid / (kBN / 8); row < kBM;",
                 "for (int row = kBM; row < kBM;")
+# The flash kernel: its exponent, one score's exponent, and its two
+# products' wgmma calls.
+_FLASH_P = "const float p = flash_exp(sc[4 * n + e], m[e >> 1]);"
+_FLASH_EX2 = (_FLASH, "return expf(s - m);",
+              "float y;\n  asm(\"ex2.approx.ftz.f32 %0, %1;\"\n      : \"=f\"(y)"
+              "\n      : \"f\"(fmaf(s, 1.4426950408889634f, "
+              "-m * 1.4426950408889634f)));\n  return y;")
+_FLASH_PV = "hopper::wgmma_rs<D, 1>("
+_FLASH_QK = "hopper::wgmma_rs<kBN>("
+_FLASH_PIN = ("        hopper::fence_regs(sc);\n"
+              "        hopper::fence_regs(l);\n")
 _PROJ_ONLY = ("int err = pnp::flash::launch_flat(",
               "int err = 0;\n  if (0)\n    err = pnp::flash::launch_flat(")
 _NO_LN = ("int err = gm::launch_layer_norm(x, gamma, beta, xn, M, D, eps, "
@@ -265,19 +289,34 @@ VARIANTS = {
     },
     "flash_attention": {
         "full": [],
-        "d64_minb3": [(_FLASH, "kMinBlocksD64 = 4", "kMinBlocksD64 = 3")],
-        "d64_rb2": [(_FLASH, "kRowBlocksD64 = 1", "kRowBlocksD64 = 2"),
-                    (_FLASH, "kMinBlocksD64 = 4", "kMinBlocksD64 = 2")],
-        "d64_rb2_minb3": [
-            (_FLASH, "kRowBlocksD64 = 1", "kRowBlocksD64 = 2"),
-            (_FLASH, "kMinBlocksD64 = 4", "kMinBlocksD64 = 3")],
-        "d64_warps8": [(_FLASH, "kWarpsD64 = 4", "kWarpsD64 = 8"),
-                       (_FLASH, "kMinBlocksD64 = 4", "kMinBlocksD64 = 2")],
-        "d64_stages3": [(_FLASH, "kStagesD64 = 2", "kStagesD64 = 3")],
-        "d128_minb3": [(_FLASH, "kMinBlocksD128 = 2", "kMinBlocksD128 = 3")],
-        "d128_warps8": [(_FLASH, "kWarpsD128 = 4", "kWarpsD128 = 8"),
-                        (_FLASH, "kMinBlocksD128 = 2", "kMinBlocksD128 = 1")],
-        "d128_stages3": [(_FLASH, "kStagesD128 = 2", "kStagesD128 = 3")],
+        # Outputs stay right.
+        "no_pingpong": [(_FLASH, "kPingPong = true", "kPingPong = false")],
+        "one_consumer": [
+            (_FLASH, "kConsumersD64 = 2", "kConsumersD64 = 1"),
+            (_FLASH, "kConsumersD64Long = 3", "kConsumersD64Long = 1"),
+            (_FLASH, "kConsumersD128 = 2", "kConsumersD128 = 1")],
+        "two_consumers": [
+            (_FLASH, "kConsumersD64Long = 3", "kConsumersD64Long = 2")],
+        "three_consumers": [
+            (_FLASH, "kConsumersD64 = 2", "kConsumersD64 = 3")],
+        "keys128": [(_FLASH, "kKeysD64 = 64", "kKeysD64 = 128"),
+                    (_FLASH, "kKeysD128 = 64, kStagesD128 = 4",
+                     "kKeysD128 = 128, kStagesD128 = 2")],
+        "stages2": [(_FLASH, "kStagesD64 = 6", "kStagesD64 = 2"),
+                    (_FLASH, "kStagesD128 = 4", "kStagesD128 = 2")],
+        "stages4": [(_FLASH, "kStagesD64 = 6", "kStagesD64 = 4")],
+        "d128_stages6": [(_FLASH, "kStagesD128 = 4", "kStagesD128 = 6")],
+        "turns3": [(_FLASH, "kPingPong && kConsumers == 2",
+                    "kPingPong && kConsumers > 1")],
+        "ex2": [_FLASH_EX2],
+        # The softmax left free to sink past the wait for P V.
+        "no_pin": [(_FLASH, _FLASH_PIN, "")],
+        "always_rescale": [(_FLASH, "if (__any_sync(0xffffffffu, alpha[0] "
+                            "!= 1.f || alpha[1] != 1.f)) {", "{")],
+        # Outputs wrong by design.
+        "no_exp": [(_FLASH, _FLASH_P, "const float p = sc[4 * n + e];")],
+        "no_pv": [(_FLASH, _FLASH_PV, "if (0) " + _FLASH_PV)],
+        "no_qk": [(_FLASH, _FLASH_QK, "if (0) " + _FLASH_QK)],
     },
     "crf_materialize": {
         "full": [],
@@ -418,7 +457,9 @@ def main() -> int:
     from torch.nn import functional as F
 
     import chip_smoke
-    from pnp_ovss_tpu_torch.ops import _build, bilateral, vit_block
+    from pnp_ovss_tpu_torch.ops import (
+        _build, bilateral, flash_attention, vit_block,
+    )
 
     if not torch.cuda.is_available():
         print("kernel_ablation: no CUDA device", file=sys.stderr)
@@ -462,13 +503,20 @@ def main() -> int:
     flash_shapes = []
     for label, fb, fs, fh, fd in (("336 px", cfg.batch_size, vit.seq_len,
                                    vit.num_heads, vit.head_dim),
+                                  ("CLIP", 8, 577, 16, 64),
                                   ("768 px", 12, 2305, 16, 64),
                                   ("768 px D=128", 12, 2305, 8, 128)):
         qkv = randn(fb, fs, 3 * fh * fd)
+        hd_ = fh * fd
+        # The plain version where it fits in a few GB (not at 768 px).
+        ref = (flash_attention.attention_plain(
+            qkv[..., :hd_], qkv[..., hd_:2 * hd_], qkv[..., 2 * hd_:],
+            num_heads=fh, true_len=fs, out_dtype=torch.float32)
+            if fs < 1024 else None)
         flash_shapes.append((f"{label} [{fb}, {fh}, {fs}, {fd}]", qkv,
                              torch.empty((fb, fs, fh * fd),
                                          dtype=torch.bfloat16, device=dev),
-                             fb, fs, fh, fd))
+                             fb, fs, fh, fd, ref))
     # K8 at chip_smoke.py's four shapes and features, packed for each run;
     # the plain version on the first 1024 rows of each.
     k8_support = chip_smoke.k8_support(cfg, gen)
@@ -597,7 +645,7 @@ def main() -> int:
         if src == "flash_attention":
             fn = lib.flash_mha_flat_bf16
             fn.argtypes = [P] * 4 + [Ll] * 8 + [I] * 5 + [Fl, P]
-            for label, qkv, o, fb, fs, fh, fd in flash_shapes:
+            for label, qkv, o, fb, fs, fh, fd, ref in flash_shapes:
                 hd = fh * fd
                 rs, bs = 3 * hd, fs * 3 * hd
                 ptr = qkv.data_ptr()
@@ -608,10 +656,17 @@ def main() -> int:
                             fh, fd, fd**-0.5, stream))
                 if call() != 0:
                     raise SystemExit(f"{src} {name}: launch failed")
+                torch.cuda.synchronize()
+                err = ("" if ref is None else "; max |out - plain| "
+                       f"{(o.float() - ref).abs().max().item():.3g}")
                 ms = chip_smoke.time_ms(call, 20)
+                bms = chip_smoke.flash_bound_ms(
+                    (qkv.numel() + fb * fs * fh * fd) * 2, fb, fh, fs, fs,
+                    fd)[0]
                 print(f"{src} {name} {label}: {ms:.4f} ms ("
                       f"{4.0 * fb * fh * fs * fs * fd / ms / 1e9:.1f} "
-                      "TFLOP/s)", flush=True)
+                      f"TFLOP/s, {ms / bms:.2f}x its bound {bms:.4f}{err})",
+                      flush=True)
             continue
         if src == "flash_qkv_proj":
             fn = lib.flash_mha_qkv_proj_bf16

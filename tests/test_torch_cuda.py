@@ -7,7 +7,9 @@ so it runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 It covers the shapes and code paths ``chip_smoke.py`` does not reach at
-the main path's shapes: head dim 128, ragged sequence and pixel counts,
+the main path's shapes: the flash kernel at edge tiles (one row, one key,
+a row past a query tile), with NaN and Inf in the keys past true_len and
+with a stalled ring; head dim 128, ragged sequence and pixel counts,
 row-padded anchors, one variant and fewer than 64 state rows; for the
 fused ViT kernels (K1, K3, K4) row counts that are no multiple of the
 row tile, narrow widths, masked keys and several key tiles; for K8 ragged
@@ -147,6 +149,94 @@ def test_flash_entries_match_plain_across_the_ring(cuda, entry, d):
         if entry == "bhsd" else \
         (out[:, :rows].float() - ref[:, :rows]).abs().max()
     assert err.item() < 5e-3, err.item()
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("entry", ["qkv", "xlen", "qkv_proj"])
+def test_flash_ignores_nan_and_inf_past_true_len(cuda, entry, d):
+    """NaN, Inf and -Inf written into the K and V rows at and beyond
+    true_len never reach an output row (the kernel's K / V tensor maps end
+    at true_len, so TMA writes zeros there and reads nothing): every row,
+    those past true_len too, is finite and equal bit for bit to the run on
+    clean rows."""
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    b, h, s, tl, dm = 2, 2, 300, 171, 256
+    hd = h * d
+    clean = _randn(gen, b, s, 3 * hd).to(torch.bfloat16)
+    dirty = clean.clone()
+    for i, bad in enumerate((float("nan"), float("inf"), float("-inf"))):
+        dirty[:, tl + i::3, hd:] = bad
+    x = _randn(gen, b, s, dm).to(torch.bfloat16)
+    pw = (_randn(gen, dm, hd) / hd**0.5).to(torch.bfloat16)
+    pb = (0.1 * _randn(gen, dm)).to(torch.bfloat16)
+
+    def run(qkv):
+        if entry == "qkv":
+            return flash_attention.flash_mha_flat_qkv(qkv, num_heads=h,
+                                                      true_len=tl)
+        if entry == "xlen":
+            return flash_attention.flash_mha_flat_xlen(
+                qkv[:, 37:250, :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:],
+                num_heads=h, true_kv_len=tl)
+        return flash_attention.flash_mha_qkv_proj(qkv, x, pw, pb,
+                                                  num_heads=h, true_len=tl)
+
+    want, got = run(clean), run(dirty)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s,true_len", [(1, None), (40, 1), (65, None),
+                                        (129, None), (257, 129)])
+def test_flash_kernel_at_edge_tiles(cuda, d, s, true_len):
+    """One query row (S = 1), one key (L = 1: every row is v's row 0,
+    exactly), S one row past a 64- and a 128-row query tile and L one key
+    past a 128-key tile, against the plain version (bf16 P and output, the
+    bar of the small shapes above); K7 on rows [1, S) equals K2's rows bit
+    for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    b, h = 2, 3
+    hd = h * d
+    qkv = _randn(gen, b, s, 3 * hd).to(torch.bfloat16)
+    q, k, v = qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:]
+    tl = true_len or s
+    out = flash_attention.flash_mha_flat_qkv(qkv, num_heads=h,
+                                             true_len=true_len)
+    assert torch.isfinite(out).all()
+    if tl == 1:
+        assert torch.equal(out, v[:, :1].expand_as(out))
+    ref = flash_attention.attention_plain(q, k, v, num_heads=h, true_len=tl,
+                                          out_dtype=torch.float32)
+    err = (out[:, :tl].float() - ref[:, :tl]).abs().max().item()
+    assert err < 2e-2, err
+    if s > 1:
+        part = flash_attention.flash_mha_flat_xlen(
+            q[:, 1:], k, v, num_heads=h, true_kv_len=tl)
+        assert torch.equal(part, out[:, 1:])
+
+
+def test_flash_stalled_ring_traps(cuda):
+    """A ring stage of the flash kernel's library whose bytes never arrive
+    ends the launch with an error (its waits trap after ~2 s), not a
+    hang. It runs in a child process, since a trap leaves the CUDA context
+    unusable."""
+    code = (
+        "import torch\n"
+        "from pnp_ovss_tpu_torch.ops import _build\n"
+        "lib = _build.library('flash_attention')\n"
+        "torch.zeros(1, device='cuda')\n"
+        "rc = lib.flash_mha_stall(torch.cuda.current_stream().cuda_stream)\n"
+        "print('launched:', rc)\n"
+        "try:\n"
+        "    torch.cuda.synchronize()\n"
+        "except RuntimeError as e:\n"
+        "    print('trapped:', e)\n")
+    root = Path(__file__).resolve().parent.parent
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600, cwd=root)
+    assert "launched: 0" in res.stdout, res.stdout + res.stderr
+    assert "trapped:" in res.stdout, res.stdout + res.stderr
 
 
 def _feats(gen, n):

@@ -168,6 +168,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                     repo / "scripts" / "profile_torch_port.py",
                     repo / "scripts" / "kernel_ablation.py",
                     repo / "scripts" / "time_k8.py",
+                    repo / "scripts" / "time_flash.py",
                     repo / "scripts" / "time_host_post.py",
                     repo / "scripts" / "synthetic_postprocess_gate_torch.py",
                     repo / "scripts" / "accuracy_gate_torch.py"]
