@@ -23,7 +23,9 @@ down, and the worker runs the reference's per-image postprocess at GT
 resolution on them (``SegmentationRunner.finalize_image_parity``: numpy and
 the native lattice CRF, spread over the host's cores; no device work).
 ``--device cuda`` (the default)
-raises without a card; nothing falls back to the CPU.
+raises without a card; nothing falls back to the CPU. ``--trace_spans
+PATH`` records the runner's spans and counters (``utils/tracing.py``) and
+writes them at exit as a Chrome trace.
 
 Parallel runs start one process per rank under torchrun, as the
 reference's DDP does:
@@ -48,6 +50,7 @@ import argparse
 import concurrent.futures as cf
 import dataclasses
 import glob
+import json
 import os
 import time
 
@@ -172,6 +175,10 @@ def get_args_parser() -> argparse.ArgumentParser:
                    help="comma-separated image ids: dump attention overlays"
                         " and pred-vs-GT renders under {save_path}/viz/ "
                         "(reference script :330-341, :790-807)")
+    p.add_argument("--trace_spans", default=None, metavar="PATH",
+                   help="record the runner's spans and counters and write "
+                        "them at exit as a Chrome trace to PATH (PATH.rank"
+                        "N for each rank of a run over several ranks)")
     # Demo mode (reference coco script --in_the_wild :351-384): segment
     # arbitrary images in a directory with a user-given class list; no GT,
     # no metrics — rendered maps are written under {save_path}/viz/.
@@ -304,6 +311,22 @@ def main(argv=None):
     were written (``batch_done_s``) and the seconds its host finalize took
     on the worker thread (``finalize_s``)."""
     args = get_args_parser().parse_args(argv)
+    if args.trace_spans is None:
+        return _segment(args)
+    from pnp_ovss_tpu_torch.utils.tracing import TRACER, chrome_trace
+
+    TRACER.enable()
+    try:
+        return _segment(args)
+    finally:
+        TRACER.disable()
+        path = (args.trace_spans if args.world_size == 1
+                else f"{args.trace_spans}.rank{args.rank}")
+        with open(path, "w") as f:
+            json.dump(chrome_trace(TRACER.drain(), pid=args.rank), f)
+
+
+def _segment(args):
     strategy, model_axis = model_axis_strategy(args)
 
     import torch

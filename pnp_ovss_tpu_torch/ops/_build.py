@@ -9,7 +9,9 @@ source is rebuilt and a stale library is never loaded.
 
 ``LAUNCHES`` counts kernel launches by kernel name. A wrapper adds one
 where it launches its kernel and nowhere else; the plain PyTorch version
-a wrapper runs for CPU tensors is not counted.
+a wrapper runs for CPU tensors is not counted. With the tracer on, the
+nvcc runs are one ``build.compile`` span, each library's load a
+``build.load`` span, and ``build.compiled`` counts the sources built.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from pathlib import Path
 from typing import Dict
 
 import torch
+
+from pnp_ovss_tpu_torch.utils.tracing import TRACER
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -106,24 +110,27 @@ def build_all() -> Dict[str, Path]:
     failed build."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {name: _lib_path(name) for name in SOURCES}
-    procs = {}
-    for name, path in paths.items():
-        if path.exists():
-            continue
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True), tmp)
+    stale = [name for name, path in paths.items() if not path.exists()]
+    if not stale:
+        return paths
     failed = []
-    for name, (proc, tmp) in procs.items():
-        out, _ = proc.communicate()
-        build_logs[name] = out
-        if proc.returncode != 0:
-            failed.append(f"--- {name}.cu (rc {proc.returncode})\n{out}")
-        else:
-            os.replace(tmp, paths[name])
+    with TRACER.span("build.compile", source=",".join(stale)):
+        procs = {}
+        for name in stale:
+            tmp = paths[name].with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), tmp)
+        for name, (proc, tmp) in procs.items():
+            out, _ = proc.communicate()
+            build_logs[name] = out
+            if proc.returncode != 0:
+                failed.append(f"--- {name}.cu (rc {proc.returncode})\n{out}")
+            else:
+                os.replace(tmp, paths[name])
+                TRACER.count("build.compiled")
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return paths
@@ -135,7 +142,8 @@ def library(name: str) -> ctypes.CDLL:
     if lib is None:
         paths = build_all()
         for src, path in paths.items():
-            dll = ctypes.CDLL(str(path))
+            with TRACER.span("build.load", source=src):
+                dll = ctypes.CDLL(str(path))
             for fn, argtypes in SOURCES[src].items():
                 getattr(dll, fn).argtypes = argtypes
                 getattr(dll, fn).restype = ctypes.c_int

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from pnp_ovss_tpu_torch.config import DropConfig
+from pnp_ovss_tpu_torch.utils.tracing import TRACER
 
 
 def expand_patch_mask_to_pixels(keep: torch.Tensor,
@@ -35,16 +36,20 @@ def make_split_round_step(embed_fn, bert_gradcam_fn, *, cfg: DropConfig,
     def round_step(dropped, images, input_ids, attention_mask):
         b = images.shape[0]
         keep = 1.0 - dropped.reshape(b, grid, grid)
-        embeds = embed_fn(images * expand_patch_mask_to_pixels(
-            keep, patch_size))
-        gc, _ = bert_gradcam_fn(embeds, input_ids, attention_mask)
-        gc = gc * keep[:, None, :, :]
-        salience = gc[:, 3:-1].sum(dim=1).reshape(b, num_patches)
-        salience = salience.masked_fill(dropped > 0, float("-inf"))
-        top = torch.sort(salience, dim=1, descending=True,
-                         stable=True).indices[:, :k_drop]
-        new = torch.zeros_like(dropped).scatter_(1, top, 1.0)
-        return torch.clamp(dropped + new, 0.0, 1.0), gc
+        masked = images * expand_patch_mask_to_pixels(keep, patch_size)
+        with TRACER.span("vit.encode"):
+            embeds = embed_fn(masked)
+        del masked  # freed before BERT runs
+        with TRACER.span("bert.gradcam"):
+            gc, _ = bert_gradcam_fn(embeds, input_ids, attention_mask)
+        with TRACER.span("drop.select"):
+            gc = gc * keep[:, None, :, :]
+            salience = gc[:, 3:-1].sum(dim=1).reshape(b, num_patches)
+            salience = salience.masked_fill(dropped > 0, float("-inf"))
+            top = torch.sort(salience, dim=1, descending=True,
+                             stable=True).indices[:, :k_drop]
+            new = torch.zeros_like(dropped).scatter_(1, top, 1.0)
+            return torch.clamp(dropped + new, 0.0, 1.0), gc
 
     return round_step
 
@@ -57,7 +62,9 @@ def run_drop_rounds(round_step, images, input_ids, attention_mask, *,
                           device=images.device)
     gc0 = agg = None
     for r in range(cfg.num_rounds):
-        dropped, gc = round_step(dropped, images, input_ids, attention_mask)
+        with TRACER.span("drop.round", r=r):
+            dropped, gc = round_step(dropped, images, input_ids,
+                                     attention_mask)
         if r == 0:
             gc0 = agg = gc
         else:

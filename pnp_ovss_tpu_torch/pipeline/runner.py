@@ -57,6 +57,7 @@ from pnp_ovss_tpu_torch.parallel.sequence import encode_images_sp
 from pnp_ovss_tpu_torch.parallel.tensor import shard_model
 from pnp_ovss_tpu_torch.pipeline import drop as drop_mod
 from pnp_ovss_tpu_torch.pipeline import masks as masks_mod
+from pnp_ovss_tpu_torch.utils.tracing import TRACER
 
 _DISABLED = -1e30
 
@@ -86,22 +87,26 @@ class PendingBatch:
     maps_agg_dev: Optional[torch.Tensor] = None
     grid_r0_dev: Optional[torch.Tensor] = None
     grid_agg_dev: Optional[torch.Tensor] = None
+    batch: int = -1  # the tracer's batch id of the submit
 
     def result(self, *, materialize_labels: bool = True) -> BatchResult:
         """Copy the results to the host (waits for the device).
         ``materialize_labels=False`` keeps the labels on the device (the
         CLI's ``--eval_at_bucket``, whose histograms are counted there)."""
-        labels = (self.labels_dev.cpu().numpy() if materialize_labels
-                  else self.labels_dev)
+        with TRACER.span("runner.result", batch=self.batch):
+            labels = (self.labels_dev.cpu().numpy() if materialize_labels
+                      else self.labels_dev)
 
-        def opt(x):
-            return None if x is None else x.cpu().numpy()
+            def opt(x):
+                return None if x is None else x.cpu().numpy()
 
-        return BatchResult(
-            labels_r0=labels[:, 0], labels_agg=labels[:, 1],
-            num_classes=self.num_classes, bg_enable=self.bg_enable,
-            maps_r0=opt(self.maps_r0_dev), maps_agg=opt(self.maps_agg_dev),
-            grid_r0=opt(self.grid_r0_dev), grid_agg=opt(self.grid_agg_dev))
+            return BatchResult(
+                labels_r0=labels[:, 0], labels_agg=labels[:, 1],
+                num_classes=self.num_classes, bg_enable=self.bg_enable,
+                maps_r0=opt(self.maps_r0_dev),
+                maps_agg=opt(self.maps_agg_dev),
+                grid_r0=opt(self.grid_r0_dev),
+                grid_agg=opt(self.grid_agg_dev))
 
 
 class SegmentationRunner:
@@ -204,14 +209,15 @@ class SegmentationRunner:
         ((maps_r0, maps_agg) [B, K, Hb, Wb], (grid_r0, grid_agg) [B, K, g,
         g]). The grid maps (thresholded, before the upsample) are what the
         parity path resizes to GT in one step."""
-        out, grids = [], []
-        for gc, rescale in ((gc0, True), (agg, False)):
-            pooled = pool_token_maps(pool_matrix, gc)
-            masked = masks_mod.threshold_maps(pooled, self.cfg.threshold)
-            grids.append(masked)
-            out.append(masks_mod.upsample_maps(
-                masked, self.bucket, self.bucket, rescale=rescale))
-        return tuple(out), tuple(grids)
+        with TRACER.span("runner.maps"):
+            out, grids = [], []
+            for gc, rescale in ((gc0, True), (agg, False)):
+                pooled = pool_token_maps(pool_matrix, gc)
+                masked = masks_mod.threshold_maps(pooled, self.cfg.threshold)
+                grids.append(masked)
+                out.append(masks_mod.upsample_maps(
+                    masked, self.bucket, self.bucket, rescale=rescale))
+            return tuple(out), tuple(grids)
 
     def _post(self, maps_r0, maps_agg, bg_enable, class_valid, images_rgb,
               xy_scale):
@@ -219,31 +225,36 @@ class SegmentationRunner:
         images_rgb [B, Hb, Wb, 3] uint8; xy_scale [B, 2] -> labels
         [B, 2, Hb, Wb] uint8 (variant 0 = round 0, 1 = aggregate)."""
         cfg = self.cfg
-        maps = torch.stack([maps_r0, maps_agg], dim=1)  # [B, 2, K, Hb, Wb]
-        hb, wb = maps.shape[-2:]
-        maps = torch.where(class_valid[:, None, :, None, None], maps,
-                           torch.zeros_like(maps))
-        wbg = masks_mod.add_background(maps)  # [B, 2, K+1, Hb, Wb]
         mode = cfg.postprocess.mode
-        if "blur" in mode:
-            sigma = cfg.postprocess.blur_scale * max(hb, wb)
-            wbg = blur_and_minmax(wbg.to(torch.bfloat16), sigma)
-        chan_valid = torch.cat([bg_enable[:, None], class_valid], dim=1)
-        wbg = torch.where(chan_valid[:, None, :, None, None], wbg,
-                          torch.full_like(wbg, _DISABLED))
-        if "crf" not in mode:
-            return masks_mod.argmax_labels(wbg).to(torch.uint8)
-        pp = cfg.postprocess
-        labels = [
-            crf_mod.mean_field_crf_variants(
-                wbg[i], images_rgb[i].float(), pp.crf,
-                bilateral_subsample=pp.bilateral_subsample,
-                bilateral_mode=pp.bilateral_mode,
-                nystrom_ridge=pp.nystrom_ridge, xy_scale=xy_scale[i])
-            for i in range(wbg.shape[0])
-        ]
-        # Channel indices fit in uint8 (max_classes + 1 <= 256).
-        return torch.stack(labels).to(torch.uint8)
+        with TRACER.span("runner.post"):
+            with TRACER.span("post.blur"):
+                # [B, 2, K, Hb, Wb]
+                maps = torch.stack([maps_r0, maps_agg], dim=1)
+                hb, wb = maps.shape[-2:]
+                maps = torch.where(class_valid[:, None, :, None, None], maps,
+                                   torch.zeros_like(maps))
+                wbg = masks_mod.add_background(maps)  # [B, 2, K+1, Hb, Wb]
+                if "blur" in mode:
+                    sigma = cfg.postprocess.blur_scale * max(hb, wb)
+                    wbg = blur_and_minmax(wbg.to(torch.bfloat16), sigma)
+                chan_valid = torch.cat([bg_enable[:, None], class_valid],
+                                       dim=1)
+                wbg = torch.where(chan_valid[:, None, :, None, None], wbg,
+                                  torch.full_like(wbg, _DISABLED))
+            if "crf" not in mode:
+                return masks_mod.argmax_labels(wbg).to(torch.uint8)
+            pp = cfg.postprocess
+            with TRACER.span("post.crf", images=wbg.shape[0]):
+                labels = [
+                    crf_mod.mean_field_crf_variants(
+                        wbg[i], images_rgb[i].float(), pp.crf,
+                        bilateral_subsample=pp.bilateral_subsample,
+                        bilateral_mode=pp.bilateral_mode,
+                        nystrom_ridge=pp.nystrom_ridge, xy_scale=xy_scale[i])
+                    for i in range(wbg.shape[0])
+                ]
+            # Channel indices fit in uint8 (max_classes + 1 <= 256).
+            return torch.stack(labels).to(torch.uint8)
 
     def run_batch(self, images, caption_batch, images_rgb_bucket, *,
                   return_maps: bool = False, gt_sizes=None) -> BatchResult:
@@ -271,45 +282,55 @@ class SegmentationRunner:
         ``crf_xy_gt_scale`` the CRF's spatial stds scale per axis by
         (bucket/gt_w, bucket/gt_h). None keeps bucket-pixel constants."""
         cfg = self.cfg
-        n = caption_batch.num_classes
-        bg_enable = np.asarray([
-            masks_mod.context_includes_background(
-                cfg.data_type, int(c),
-                max_for_background=cfg.context_background_max_classes)
-            for c in n])
+        batch = TRACER.new_batch()
         images_np = np.asarray(images)
-        if images_np.dtype == np.uint8:
-            img = self._normalize(self._to_dev(images_np))
-        else:  # pre-normalised float images: bf16, as the model computes
-            img = self._to_dev(images_np.astype(np.float32)) \
-                .to(torch.bfloat16)
-        ids = self._to_dev(caption_batch.input_ids).long()
-        mask = self._to_dev(caption_batch.attention_mask)
-        gc0, agg = drop_mod.run_drop_rounds(
-            self._round_step, img, ids, mask,
-            cfg=cfg.drop, num_patches=cfg.model.vit.num_patches)
-        (maps_r0, maps_agg), (grid_r0, grid_agg) = self._finish_maps(
-            gc0, agg, self._to_dev(caption_batch.pool_matrix))
-
         b = images_np.shape[0]
-        if gt_sizes is not None and cfg.postprocess.crf_xy_gt_scale:
-            # (sx, sy) per image: the square bucket resize is anisotropic.
-            scale = np.asarray([(self.bucket / w, self.bucket / h)
-                                for h, w in gt_sizes], np.float32)
-        else:
-            scale = np.ones((b, 2), np.float32)
-        labels = self._post(
-            maps_r0, maps_agg, self._to_dev(bg_enable),
-            self._to_dev(caption_batch.class_valid),
-            self._to_dev(np.asarray(images_rgb_bucket, np.uint8)),
-            self._to_dev(scale))
-        return PendingBatch(
-            labels_dev=labels, num_classes=np.asarray(n),
-            bg_enable=bg_enable,
-            maps_r0_dev=maps_r0 if return_maps else None,
-            maps_agg_dev=maps_agg if return_maps else None,
-            grid_r0_dev=grid_r0 if return_grid_maps else None,
-            grid_agg_dev=grid_agg if return_grid_maps else None)
+        TRACER.count("runner.batches")
+        TRACER.count("runner.images", b)
+        with TRACER.span("runner.submit", batch=batch, images=b):
+            n = caption_batch.num_classes
+            bg_enable = np.asarray([
+                masks_mod.context_includes_background(
+                    cfg.data_type, int(c),
+                    max_for_background=cfg.context_background_max_classes)
+                for c in n])
+            ids_np = np.asarray(caption_batch.input_ids)
+            mask_np = np.asarray(caption_batch.attention_mask)
+            with TRACER.span("runner.upload", bytes=images_np.nbytes
+                             + ids_np.nbytes + mask_np.nbytes):
+                if images_np.dtype == np.uint8:
+                    img = self._normalize(self._to_dev(images_np))
+                else:  # pre-normalised float images: bf16, as computed
+                    img = self._to_dev(images_np.astype(np.float32)) \
+                        .to(torch.bfloat16)
+                ids = self._to_dev(ids_np).long()
+                mask = self._to_dev(mask_np)
+            gc0, agg = drop_mod.run_drop_rounds(
+                self._round_step, img, ids, mask,
+                cfg=cfg.drop, num_patches=cfg.model.vit.num_patches)
+            (maps_r0, maps_agg), (grid_r0, grid_agg) = self._finish_maps(
+                gc0, agg, self._to_dev(caption_batch.pool_matrix))
+
+            if gt_sizes is not None and cfg.postprocess.crf_xy_gt_scale:
+                # (sx, sy) per image: the square bucket resize is
+                # anisotropic.
+                scale = np.asarray([(self.bucket / w, self.bucket / h)
+                                    for h, w in gt_sizes], np.float32)
+            else:
+                scale = np.ones((b, 2), np.float32)
+            labels = self._post(
+                maps_r0, maps_agg, self._to_dev(bg_enable),
+                self._to_dev(caption_batch.class_valid),
+                self._to_dev(np.asarray(images_rgb_bucket, np.uint8)),
+                self._to_dev(scale))
+            return PendingBatch(
+                labels_dev=labels, num_classes=np.asarray(n),
+                bg_enable=bg_enable,
+                maps_r0_dev=maps_r0 if return_maps else None,
+                maps_agg_dev=maps_agg if return_maps else None,
+                grid_r0_dev=grid_r0 if return_grid_maps else None,
+                grid_agg_dev=grid_agg if return_grid_maps else None,
+                batch=batch)
 
     def make_hist_fn(self, n_class: int):
         """Per-image confusion matrices at bucket resolution, on the

@@ -252,3 +252,34 @@ def test_cuda_without_a_card_raises(env, tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         port_cli.main(env["common"] + ["--save_path", str(tmp_path)])
     assert not os.listdir(tmp_path)
+
+
+def test_trace_spans_writes_a_chrome_trace(env, tmp_path):
+    """``--trace_spans PATH``: the runner's spans of every batch as complete
+    events (rank as pid, thread as tid, batch id in args) and its counters,
+    written at exit; the tracer is off again after the run."""
+    from pnp_ovss_tpu_torch.utils.tracing import TRACER
+
+    path = tmp_path / "spans.json"
+    port_cli.main(env["common"] + ["--save_path", str(tmp_path / "out"),
+                                   "--device", "cpu", "--no_resume",
+                                   "--trace_spans", str(path)])
+    assert not TRACER.enabled
+    events = json.loads(path.read_text())["traceEvents"]
+    spans = [e for e in events if e["ph"] == "X"]
+    counters = {e["name"]: e["args"][e["name"]] for e in events
+                if e["ph"] == "C"}
+    batches = -(-N_IMG // 4)
+    assert counters["runner.batches"] == batches
+    assert counters["runner.images"] == 4 * batches  # the tail is padded
+    submits = [e for e in spans if e["name"] == "runner.submit"]
+    results = [e for e in spans if e["name"] == "runner.result"]
+    assert len(submits) == len(results) == batches
+    assert sorted(e["args"]["batch"] for e in submits) == \
+        sorted(e["args"]["batch"] for e in results)
+    assert {e["pid"] for e in spans} == {0}
+    assert all(e["dur"] >= 0 and isinstance(e["tid"], int) for e in spans)
+    names = {e["name"] for e in spans}
+    assert {"runner.upload", "drop.round", "vit.encode", "bert.gradcam",
+            "drop.select", "runner.maps", "runner.post", "post.blur",
+            "post.crf"} <= names

@@ -1129,3 +1129,44 @@ def test_tp_block_on_one_rank_matches_unsharded(cuda, fused):
     ulp = 2.0 ** (torch.floor(torch.log2(want.float().abs().max())) - 7)
     err = (got.float() - want.float()).abs().max()
     assert err <= 4 * ulp, (err.item(), ulp.item())
+
+
+def test_tracer_spans_share_the_device_trace_clock(cuda):
+    """A span stamped by the port's tracer and the kineto events of a
+    ``torch.profiler`` trace with CUDA activity lie on one clock: the span
+    around a launch of a ~2 ms spin kernel and ``synchronize()`` holds the
+    launch call (the runtime event with the kernel's correlation id) and
+    the kernel's device interval, to within 50 us."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pnp_ovss_tpu_torch.utils.tracing import Tracer
+
+    tracer = Tracer()
+    tracer.enable()
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            with tracer.span("sleep"):
+                torch.cuda._sleep(3_000_000)
+                torch.cuda.synchronize()
+    spans = tracer.drain()["spans"]
+    events = list(prof.profiler.kineto_results.events())
+    kernels = [e for e in events
+               if e.device_type() == torch.autograd.DeviceType.CUDA
+               and "spin" in e.name()]
+    # The runtime's calls; the profiler's own host events may share ids.
+    calls = {e.correlation_id(): e for e in events
+             if e.device_type() != torch.autograd.DeviceType.CUDA
+             and e.name().startswith("cu")}
+    assert len(kernels) == len(spans) == 3
+    for k, s in zip(sorted(kernels, key=lambda e: e.start_ns()), spans):
+        call = calls[k.correlation_id()]
+        print(f"{call.name()}: launch {call.start_ns() - s['start_ns']} ns "
+              f"after the span's start; kernel [{k.start_ns() - s['start_ns']}"
+              f", {k.end_ns() - s['start_ns']}] ns, span's end "
+              f"{s['end_ns'] - s['start_ns']} ns")
+        assert s["start_ns"] <= call.start_ns() <= call.end_ns() \
+            <= s["end_ns"]
+        assert s["start_ns"] - 50_000 <= k.start_ns() < k.end_ns() \
+            <= s["end_ns"] + 50_000

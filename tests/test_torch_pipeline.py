@@ -27,6 +27,7 @@ from pnp_ovss_tpu.text.wordpiece import WordPieceTokenizer
 from pnp_ovss_tpu_torch import config as pcfg_mod
 from pnp_ovss_tpu_torch.models.convert import from_jax_params
 from pnp_ovss_tpu_torch.pipeline.runner import SegmentationRunner
+from pnp_ovss_tpu_torch.utils.tracing import TRACER
 
 NMS = ["dog", "cat", "grass", "sky"]
 B, BUCKET = 4, 32
@@ -67,12 +68,12 @@ def results(request):
                             capture_layers=(0,), device="cpu", vit_fused=False)
     prun = SegmentationRunner(pcfg, model, device="cpu", bucket_size=BUCKET)
     got = prun.run_batch(images, cap, rgb, return_maps=True, gt_sizes=gt)
-    yield jrun, prun, want, got
+    yield jrun, prun, want, got, (images, cap, rgb, gt)
     mp.undo()
 
 
 def test_maps_match_jax_runner(results):
-    _, _, want, got = results
+    _, _, want, got, _ = results
     for name in ("maps_r0", "maps_agg"):
         a, b = getattr(got, name), getattr(want, name)
         assert a.shape == b.shape == (B, 4, BUCKET, BUCKET)
@@ -81,7 +82,7 @@ def test_maps_match_jax_runner(results):
 
 
 def test_labels_match_jax_runner(results):
-    _, _, want, got = results
+    _, _, want, got, _ = results
     for name in ("labels_r0", "labels_agg"):
         a, b = getattr(got, name), getattr(want, name)
         assert a.shape == b.shape == (B, BUCKET, BUCKET)
@@ -91,8 +92,53 @@ def test_labels_match_jax_runner(results):
 
 
 def test_finalize_image_matches_jax_runner(results):
-    jrun, prun, want, got = results
+    jrun, prun, want, got, _ = results
     a = prun.finalize_image(got.labels_agg[0], [1, 3], (40, 52))
     b = jrun.finalize_image(got.labels_agg[0], [1, 3], (40, 52))
     np.testing.assert_array_equal(a, b)
     assert set(np.unique(a)) <= {0, 1, 3}
+
+
+def _tree(spans, i):
+    """(name, attributes, children) of span ``i`` and what it encloses."""
+    kids = [_tree(spans, j) for j, s in enumerate(spans) if s["parent"] == i]
+    return spans[i]["name"], spans[i]["attrs"], kids
+
+
+def test_traced_batch_gives_the_span_tree_and_the_same_outputs(results):
+    """One batch with the tracer on: the runner's span tree (one
+    ``drop.round`` a round, one ``post.crf`` over the batch), one batch id
+    on the submit's spans and its result's; labels and maps bit-equal to
+    the untraced run's."""
+    _, prun, _, untraced, (images, cap, rgb, gt) = results
+    TRACER.drain()
+    TRACER.enable()
+    try:
+        pending = prun.submit_batch(images, cap, rgb, return_maps=True,
+                                    gt_sizes=gt)
+        got = pending.result()
+    finally:
+        TRACER.disable()
+    data = TRACER.drain()
+    spans = data["spans"]
+    roots = [i for i, s in enumerate(spans) if s["parent"] == -1]
+    assert [spans[i]["name"] for i in roots] == ["runner.submit",
+                                                 "runner.result"]
+    rounds = prun.cfg.drop.num_rounds
+    step = [("vit.encode", {}, []), ("bert.gradcam", {}, []),
+            ("drop.select", {}, [])]
+    assert _tree(spans, roots[0]) == (
+        "runner.submit", {"images": B},
+        [("runner.upload", {"bytes": images.nbytes
+                            + np.asarray(cap.input_ids).nbytes
+                            + np.asarray(cap.attention_mask).nbytes}, [])]
+        + [("drop.round", {"r": r}, step) for r in range(rounds)]
+        + [("runner.maps", {}, []),
+           ("runner.post", {}, [("post.blur", {}, []),
+                                ("post.crf", {"images": B}, [])])])
+    assert _tree(spans, roots[1]) == ("runner.result", {}, [])
+    assert {s["batch"] for s in spans} == {pending.batch}
+    assert data["counters"] == {"runner.batches": 1, "runner.images": B}
+    for name in ("labels_r0", "labels_agg", "maps_r0", "maps_agg"):
+        np.testing.assert_array_equal(getattr(got, name),
+                                      getattr(untraced, name), err_msg=name)

@@ -2,14 +2,15 @@
 
 ``viz`` on ``tests/test_viz.py``'s cases must give equal arrays and the same
 files; ``SmoothedValue`` / ``MetricLogger`` the same values and lines;
-``Tracer`` the same summary structure, with its stages as profiler ranges.
+the port's own ``Tracer`` (spans and counters, off by default) keeps the
+summary structure of the JAX package's.
 """
 
-import json
+import threading
+import time
 
 import numpy as np
 import pytest
-import torch
 from PIL import Image
 
 from pnp_ovss_tpu.utils import logging as jlog
@@ -90,22 +91,68 @@ def test_metric_logger_equals_jax(capsys):
     assert capsys.readouterr().out == "shown\n"
 
 
-def test_tracer_summary_and_profile(tmp_path):
-    tracer = ptrace.Tracer()
-    with ptrace.profile_to(str(tmp_path / "trace")):
-        for _ in range(3):
-            with tracer.stage("encode"):
-                torch.ones(8) @ torch.ones(8)
-        with tracer.stage("post"):
-            pass
+@pytest.fixture
+def tracer():
+    """The process-wide tracer, on for the test, off and empty after."""
+    ptrace.TRACER.drain()
+    ptrace.TRACER.enable()
+    yield ptrace.TRACER
+    ptrace.TRACER.disable()
+    ptrace.TRACER.drain()
+
+
+def test_tracer_off_records_nothing():
+    t = ptrace.Tracer()
+    assert not t.enabled and not ptrace.TRACER.enabled
+    first = t.span("a", batch=3, x=1)
+    assert first is t.span("b") is ptrace.TRACER.span("c")
+    with first as got:
+        t.count("n", 5)
+    assert got is None
+    assert t.drain() == {"spans": [], "counters": {}}
+    assert t.summary() == {}
+    assert t.new_batch() + 1 == t.new_batch()
+
+
+def test_tracer_spans_nest_count_and_summarise(tracer):
+    batch = tracer.new_batch()
+    with tracer.span("outer", batch=batch, images=2):
+        for r in range(3):
+            with tracer.span("inner", r=r):
+                tracer.count("n")
+        tracer.count("n", 4)
+        # A span on another thread does not nest under this thread's.
+        done = []
+
+        def side():
+            with tracer.span("side"):
+                done.append(threading.get_ident())
+        th = threading.Thread(target=side)
+        th.start()
+        th.join(timeout=10)
+        assert done
+    with tracer.span("root2"):
+        pass
     summary = tracer.summary()
-    assert list(summary) == ["encode", "post"]
-    assert summary["encode"]["count"] == 3 and summary["post"]["count"] == 1
+    assert set(summary) == {"outer", "inner", "side", "root2"}
+    assert summary["inner"]["count"] == 3 and summary["outer"]["count"] == 1
     assert all(set(s) == {"total_s", "count", "mean_s"}
                for s in summary.values())
-    tracer.dump(str(tmp_path / "summary.json"))
-    assert json.loads((tmp_path / "summary.json").read_text()) == summary
-    events = json.loads((tmp_path / "trace" / "trace.json").read_text())
-    names = {e.get("name") for e in events["traceEvents"]}
-    assert "encode" in names and "post" in names
-    assert ptrace.device_memory_stats("cpu") == {}
+    data = tracer.drain()
+    spans = data["spans"]
+    assert [s["name"] for s in spans] == ["outer", "inner", "inner", "inner",
+                                          "side", "root2"]
+    assert [s["parent"] for s in spans] == [-1, 0, 0, 0, -1, -1]
+    assert [s["batch"] for s in spans] == [batch] * 4 + [None, None]
+    assert [s["attrs"] for s in spans[:4]] == [
+        {"images": 2}, {"r": 0}, {"r": 1}, {"r": 2}]
+    main = threading.get_ident()
+    assert [s["tid"] for s in spans] == [main] * 4 + [done[0], main]
+    for s in spans:
+        assert s["start_ns"] <= s["end_ns"]
+    for s in spans[1:4]:
+        assert spans[0]["start_ns"] <= s["start_ns"] <= s["end_ns"] \
+            <= spans[0]["end_ns"]
+    assert abs(spans[0]["start_ns"] - time.time_ns()) < 60e9
+    assert data["counters"] == {"n": 7}
+    assert tracer.drain() == {"spans": [], "counters": {}}
