@@ -39,11 +39,12 @@ def kernel_matmul_plain(features: torch.Tensor, values: torch.Tensor,
                         features_j=None) -> torch.Tensor:
     """Plain version of K8: explicit f32 differences, 256 i-rows at a time
     to bound the [rows, M, F] intermediate (the full f32 kernel is 5.4 GB
-    at N = M = 36864); k and v rounded to bf16, f32 products."""
+    at N = M = 36864); k and v rounded to bf16, f32 products. ``values`` is
+    [M, C] or [M, G, A] (C = G * A channels)."""
     rows = 256
     fi = features.float()
     fj = fi if features_j is None else features_j.float()
-    v = values.to(torch.bfloat16).float()
+    v = values.flatten(1).to(torch.bfloat16).float()
     out = torch.empty((fi.shape[0], v.shape[1]), dtype=torch.float32,
                       device=fi.device)
     for lo in range(0, fi.shape[0], rows):
@@ -130,17 +131,19 @@ def matmul_bufs(n: int, m: int, c: int, device, width: int, split: int,
 def launch_matmul(fn, fi: torch.Tensor, fj: torch.Tensor, f: int,
                   values: torch.Tensor, stream: int, bufs=None):
     """One call of K8's C entry ``fn`` on packed features (``fi`` [N, 12],
-    ``fj`` [M, 12]) and ``values`` [M, C], copied into v^T in bf16.
-    ``bufs``: a ``MatmulBufs`` for this C and M whose counters are 0 (each
-    launch leaves them so); without it, made at ``matmul_plan``'s shape.
+    ``fj`` [M, 12]) and ``values`` [M, C] or [M, G, A] (C = G * A; any
+    strides), copied into v^T in bf16 by one copy. ``bufs``: a
+    ``MatmulBufs`` for this C and M whose counters are 0 (each launch
+    leaves them so); without it, made at ``matmul_plan``'s shape.
     Returns (return code, out [N, C] f32, bufs)."""
     n, m = fi.shape[0], fj.shape[0]
-    c = values.shape[1]
+    c = math.prod(values.shape[1:])
     if bufs is None:
         sms = torch.cuda.get_device_properties(fi.device).multi_processor_count
         width, _, split = matmul_plan(n, m, c, sms)
         bufs = matmul_bufs(n, m, c, fi.device, width, split)
-    bufs.vt[:, :m] = values.t()
+    bufs.vt[:, :m].unflatten(0, values.shape[1:]).copy_(
+        values.movedim(0, -1))
     out = torch.empty((n, c), dtype=torch.float32, device=fi.device)
     rc = fn(fi.data_ptr(), fj.data_ptr(), bufs.vt.data_ptr(), out.data_ptr(),
             bufs.ws.data_ptr(), bufs.counters.data_ptr(), n, m,
@@ -152,7 +155,11 @@ def launch_matmul(fn, fi: torch.Tensor, fj: torch.Tensor, f: int,
 def kernel_matmul_fn(features: torch.Tensor, features_j=None):
     """values [M, C] -> ``gaussian_kernel_matmul(features, values,
     features_j)``, with the features checked and, on the card, packed
-    once (the CRF makes one per image and calls it once per message)."""
+    once (the CRF makes one per image and calls it once per message).
+    values may also be [M, G, A], G groups of A channels with any strides
+    (the CRF's distinct state rows of each variant): the result is [N,
+    G * A], the channels in that order, and the gather rides in the copy
+    into v^T."""
     fj_src = features if features_j is None else features_j
     f, m = features.shape[1], fj_src.shape[0]
     if fj_src.shape[1] != f or not 1 <= f <= 8:
@@ -168,9 +175,10 @@ def kernel_matmul_fn(features: torch.Tensor, features_j=None):
                          "devices")
 
     def check_values(values):
-        if values.shape[0] != m or values.ndim != 2:
+        if values.shape[0] != m or values.ndim not in (2, 3):
             raise ValueError(f"gaussian_kernel_matmul: values "
-                             f"{tuple(values.shape)}, want [{m}, C]")
+                             f"{tuple(values.shape)}, want [{m}, C] or "
+                             f"[{m}, G, A]")
         if not values.is_floating_point():
             raise TypeError("gaussian_kernel_matmul: values must be floating "
                             "point")
@@ -188,8 +196,8 @@ def kernel_matmul_fn(features: torch.Tensor, features_j=None):
     if n == 0 or m == 0:
         def empty(values):  # nothing to sum: no launch
             check_values(values)
-            return torch.zeros((n, values.shape[1]), dtype=torch.float32,
-                               device=features.device)
+            return torch.zeros((n, math.prod(values.shape[1:])),
+                               dtype=torch.float32, device=features.device)
         return empty
 
     fj = pack_features(fj_src)
@@ -205,7 +213,7 @@ def kernel_matmul_fn(features: torch.Tensor, features_j=None):
     def launch(values):
         check_values(values)
         lib = _build.library("crf_matmul")
-        c = values.shape[1]
+        c = math.prod(values.shape[1:])
         rc, out, bufs[c] = launch_matmul(
             lib.gaussian_kernel_matmul, fi, fj, f_kernel, values,
             _build.stream_ptr(fi), bufs.get(c))

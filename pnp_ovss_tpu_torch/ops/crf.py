@@ -29,6 +29,7 @@ fused state only). No environment variable is read.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from pnp_ovss_tpu_torch.config import CRFConfig
@@ -38,6 +39,7 @@ from pnp_ovss_tpu_torch.ops.bilateral import (
     gaussian_kernel_materialize,
     kernel_matmul_fn,
 )
+from pnp_ovss_tpu_torch.utils.tracing import TRACER
 
 _MATERIALIZE_LIMIT = 7e8  # N*M entries (the JAX package's pallas limit)
 _UNARY_CLIP = 1e-5  # the reference's clip of softmax(logits)
@@ -96,6 +98,32 @@ def _normalised_apply(apply_fn, q_flat: torch.Tensor,
     return norm * apply_fn(norm * q_flat)
 
 
+def distinct_slots(channel_valid, c: int):
+    """(lo, hi, back) for a [C] host mask whose ``False`` slots hold
+    identical logits, or None where no two slots are known to be equal.
+
+    Dead slots that start equal get equal messages, so their states stay
+    equal, bit for bit, through every iteration; a message need only run
+    on slots ``lo:hi`` of each variant, the smallest range that holds every
+    live slot and the first dead one. ``back`` [C] (numpy int64) maps each
+    slot to its row in that range: its own inside it, the first dead
+    slot's outside it."""
+    valid = np.asarray(channel_valid, dtype=bool)
+    if valid.shape != (c,):
+        raise ValueError(f"channel_valid has shape {valid.shape}, want "
+                         f"({c},)")
+    dead = np.flatnonzero(~valid)
+    if dead.size < 2:
+        return None
+    keep = np.append(np.flatnonzero(valid), dead[0])
+    lo, hi = int(keep.min()), int(keep.max()) + 1
+    if hi - lo == c:
+        return None
+    slots = np.arange(c)
+    back = np.where((slots >= lo) & (slots < hi), slots, dead[0]) - lo
+    return lo, hi, back
+
+
 def mean_field_crf(logits: torch.Tensor, image_rgb: torch.Tensor,
                    cfg: CRFConfig, **kw) -> torch.Tensor:
     """Single-variant mean-field inference: logits [C, H, W] -> labels
@@ -112,6 +140,7 @@ def mean_field_crf_variants(
     bilateral_mode: str = "strided",  # "strided" | "nystrom"
     nystrom_ridge: float = 1e-2,
     xy_scale=1.0,
+    channel_valid=None,
 ) -> torch.Tensor:
     """Mean-field inference for V unary variants of one image -> labels
     [V, H, W] int64.
@@ -124,7 +153,15 @@ def mean_field_crf_variants(
     relative reach per axis (the runner passes ``(bucket/gt_w,
     bucket/gt_h)``). The strided kernel is materialised where N*M <= 7e8;
     K6 then runs each iteration where v*c <= 64 and N % 128 == 0, as the
-    JAX package decides."""
+    JAX package decides.
+
+    ``channel_valid`` [C] bool, host data (numpy or a sequence): every
+    ``False`` slot of a variant holds identical logits (the runner's
+    disabled slots). The unfused loop then runs each message on the
+    distinct slots only (``distinct_slots``) and copies a dead slot's
+    message from the first dead slot's: the same arithmetic on fewer
+    rows, while the state keeps all V * C rows. None keeps every slot
+    distinct; the fused branch ignores it."""
     if bilateral_mode not in ("strided", "nystrom"):
         raise ValueError(f"bilateral_mode={bilateral_mode!r}: want "
                          "'strided' or 'nystrom'")
@@ -144,8 +181,8 @@ def mean_field_crf_variants(
     # The bilateral support: every s-th pixel per axis (all of them at s=1).
     feats_j = feats.reshape(h, w, 5)[::s, ::s].reshape(-1, 5)
 
-    def take_j_cols(x):  # [C', N] -> [C', M]
-        return x.reshape(-1, h, w)[:, ::s, ::s].reshape(x.shape[0], -1)
+    def take_j_cols(x):  # [..., N] -> [..., M]
+        return x.unflatten(-1, (h, w))[..., ::s, ::s].flatten(-2)
 
     use_nystrom = bilateral_mode == "nystrom" and s > 1
     materialised = (bilateral_mode == "strided" and s > 1
@@ -157,9 +194,9 @@ def mean_field_crf_variants(
                                          out_dtype=torch.uint8)
         m_pad = kt.shape[0]
 
-        def take_j_pad(q_cn):  # [C', N] -> [C', M_pad], zero pad columns
+        def take_j_pad(q_cn):  # [..., N] -> [..., M_pad], zero pad columns
             qs = take_j_cols(q_cn)
-            return torch.nn.functional.pad(qs, (0, m_pad - qs.shape[1]))
+            return torch.nn.functional.pad(qs, (0, m_pad - qs.shape[-1]))
 
         # The all-ones anchor row times K^T is the column sum of the stored
         # codes (integers, exact in f32), then the 1/255 scale.
@@ -177,9 +214,10 @@ def mean_field_crf_variants(
         mm_dtype = torch.float32 if dev.type == "cpu" else torch.bfloat16
         kt_f = kt.float()
 
-        def bilateral_apply(q_cn):
+        def bilateral_apply(q_cn):  # [..., N] -> [C', N]
             qs = take_j_pad(q_cn).to(mm_dtype).float()
-            return torch.matmul(qs, kt_f) * (1.0 / KT_QUANT_SCALE)
+            return (torch.matmul(qs, kt_f)
+                    * (1.0 / KT_QUANT_SCALE)).reshape(-1, n)
     elif use_nystrom:
         # The anchor Gram matrix K_AA, f32 from K5's explicit differences
         # (fault F2: the ||a||^2 + ||b||^2 - 2ab expansion cancels for
@@ -196,13 +234,13 @@ def mean_field_crf_variants(
         k_aa_inv = torch.cholesky_solve(eye, chol)
         k_an, k_na = kernel_matmul_fn(fa, feats), kernel_matmul_fn(feats, fa)
 
-        def bilateral_apply(q_cn):  # [C', N] -> [C', N], two K8 products
-            return k_na(k_aa_inv @ k_an(q_cn.t())).t()
+        def bilateral_apply(q_cn):  # [..., N] -> [C', N], two K8 products
+            return k_na(k_aa_inv @ k_an(q_cn.movedim(-1, 0))).t()
     else:
         k_nm = kernel_matmul_fn(feats, feats_j if s > 1 else None)
 
-        def bilateral_apply(q_cn):  # [C', N] -> [C', N], one K8 product
-            return k_nm(take_j_cols(q_cn).t()).t()
+        def bilateral_apply(q_cn):  # [..., N] -> [C', N], one K8 product
+            return k_nm(take_j_cols(q_cn).movedim(-1, 0)).t()
 
     if not materialised:
         deg_bi = bilateral_apply(torch.ones((1, n), device=dev))
@@ -210,21 +248,52 @@ def mean_field_crf_variants(
 
     kh, kw = spatial_band_matrices(h, w, pos_xy_std)
 
-    def spatial_apply(q_cn):  # [C', N] -> [C', N]
+    def spatial_apply(q_cn):  # [..., N] -> [C', N]
         return _apply_separable(kh, kw, q_cn.reshape(-1, h, w)) \
-            .reshape(q_cn.shape[0], n)
+            .reshape(-1, n)
 
     deg_sp = spatial_apply(torch.ones((1, n), device=dev))
     norm_sp = torch.rsqrt(torch.clamp(deg_sp, min=1e-20))  # [1, N]
 
+    slots = None if channel_valid is None else distinct_slots(channel_valid,
+                                                               c)
+    if slots is None:
+        bi_msg, sp_msg, rows_run = bilateral_apply, spatial_apply, v * c
+    else:
+        lo, hi, back = slots
+        back = _upload((np.arange(v)[:, None] * (hi - lo) + back)
+                       .reshape(-1), dev)
+        rows_run = v * (hi - lo)
+
+        def distinct(apply_fn):
+            # Slots lo:hi of each variant, a view of the [V*C, N] state;
+            # the message of those V*(hi-lo) rows, then one gather to all.
+            return lambda q_cn: apply_fn(
+                q_cn.reshape(v, c, n)[:, lo:hi]).index_select(0, back)
+
+        bi_msg, sp_msg = distinct(bilateral_apply), distinct(spatial_apply)
+    # Summed over the loop's messages (two an iteration).
+    TRACER.count("crf.rows", 2 * cfg.num_iters * v * c)
+    TRACER.count("crf.rows_run", 2 * cfg.num_iters * rows_run)
+
     q = q0.reshape(v * c, n)
     for _ in range(cfg.num_iters):
-        m_bi = _normalised_apply(bilateral_apply, q, norm_bi)
-        m_sp = _normalised_apply(spatial_apply, q, norm_sp)
+        m_bi = _normalised_apply(bi_msg, q, norm_bi)
+        m_sp = _normalised_apply(sp_msg, q, norm_sp)
         energy = -u_flat + cfg.bi_w * m_bi + cfg.pos_w * m_sp
         # The mean-field softmax runs per variant block of c rows.
         q = torch.softmax(energy.reshape(v, c, n), dim=1).reshape(v * c, n)
     return torch.argmax(q.reshape(v, c, n), dim=1).reshape(v, h, w)
+
+
+def _upload(index: np.ndarray, device) -> torch.Tensor:
+    """Host int64 index -> ``device``, without waiting for the device: a
+    pageable copy to the card synchronises the stream, a pinned one is
+    queued on it."""
+    t = torch.from_numpy(np.ascontiguousarray(index, dtype=np.int64))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def _fused_loop(q0, u_flat, kt, take_j_pad, deg_bi, pos_xy_std,

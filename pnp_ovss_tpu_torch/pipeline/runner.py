@@ -221,11 +221,20 @@ class SegmentationRunner:
 
     def _post(self, maps_r0, maps_agg, bg_enable, class_valid, images_rgb,
               xy_scale):
-        """maps_* [B, K, Hb, Wb]; bg_enable [B]; class_valid [B, K];
-        images_rgb [B, Hb, Wb, 3] uint8; xy_scale [B, 2] -> labels
-        [B, 2, Hb, Wb] uint8 (variant 0 = round 0, 1 = aggregate)."""
+        """maps_* [B, K, Hb, Wb]; bg_enable [B] and class_valid [B, K],
+        host bool arrays; images_rgb [B, Hb, Wb, 3] uint8; xy_scale [B, 2]
+        -> labels [B, 2, Hb, Wb] uint8 (variant 0 = round 0, 1 =
+        aggregate). The CRF reads each image's row of the slot mask
+        (background first) on the host, so that it runs its messages on
+        the live slots and one disabled slot a variant without reading the
+        device."""
         cfg = self.cfg
         mode = cfg.postprocess.mode
+        slot_valid = np.concatenate(
+            [np.asarray(bg_enable, bool)[:, None],
+             np.asarray(class_valid, bool)], axis=1)  # [B, K + 1]
+        class_valid = self._to_dev(class_valid)
+        chan_valid = self._to_dev(slot_valid)
         with TRACER.span("runner.post"):
             with TRACER.span("post.blur"):
                 # [B, 2, K, Hb, Wb]
@@ -237,8 +246,6 @@ class SegmentationRunner:
                 if "blur" in mode:
                     sigma = cfg.postprocess.blur_scale * max(hb, wb)
                     wbg = blur_and_minmax(wbg.to(torch.bfloat16), sigma)
-                chan_valid = torch.cat([bg_enable[:, None], class_valid],
-                                       dim=1)
                 wbg = torch.where(chan_valid[:, None, :, None, None], wbg,
                                   torch.full_like(wbg, _DISABLED))
             if "crf" not in mode:
@@ -250,7 +257,8 @@ class SegmentationRunner:
                         wbg[i], images_rgb[i].float(), pp.crf,
                         bilateral_subsample=pp.bilateral_subsample,
                         bilateral_mode=pp.bilateral_mode,
-                        nystrom_ridge=pp.nystrom_ridge, xy_scale=xy_scale[i])
+                        nystrom_ridge=pp.nystrom_ridge, xy_scale=xy_scale[i],
+                        channel_valid=slot_valid[i])
                     for i in range(wbg.shape[0])
                 ]
             # Channel indices fit in uint8 (max_classes + 1 <= 256).
@@ -319,8 +327,7 @@ class SegmentationRunner:
             else:
                 scale = np.ones((b, 2), np.float32)
             labels = self._post(
-                maps_r0, maps_agg, self._to_dev(bg_enable),
-                self._to_dev(caption_batch.class_valid),
+                maps_r0, maps_agg, bg_enable, caption_batch.class_valid,
                 self._to_dev(np.asarray(images_rgb_bucket, np.uint8)),
                 self._to_dev(scale))
             return PendingBatch(

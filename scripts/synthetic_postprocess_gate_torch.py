@@ -178,9 +178,7 @@ def device_labels(runner, scenes, tgrids) -> list:
         else:
             scale = [[1.0, 1.0]]
         labels = runner._post(
-            mb, mb, torch.tensor([True], device=dev),
-            torch.as_tensor(np.arange(cfg.max_classes) < k,
-                            device=dev)[None],
+            mb, mb, np.asarray([True]), (np.arange(cfg.max_classes) < k)[None],
             torch.tensor(rgb_b, device=dev)[None],
             torch.tensor(scale, dtype=torch.float32, device=dev))
         out.append(runner.finalize_image(labels[0, 1].cpu().numpy(),

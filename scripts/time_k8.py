@@ -3,14 +3,18 @@
 shapes (the exact CRF's message and degree, both Nystrom products):
 ``gaussian_kernel_matmul``, which packs the features on every call, and
 the closure of ``kernel_matmul_fn``, which packs them once per image, as
-the CRF calls it. ``--tree`` times another checkout's package on the same
-inputs, so that two trees are compared in one call, in turns:
+the CRF calls it. Then the closure on the exact CRF's message over the
+first 4 and 8 slots of each variant of the 2 x 29-slot state (C = 8 and
+16), read through the strided view the CRF hands it, with the wgmma width
+it ran at. ``--tree`` times another checkout's package on the same inputs,
+so that two trees are compared in one call, in turns:
 
     python3 scripts/time_k8.py [--tree DIR] [--iters 10]
 
 The inputs are phase 3's (this checkout's ``chip_smoke.py``, seeded); the
 kernels of DIR build under DIR/build/cuda. Prints the card's name and
-power limit, then one line per shape.
+power limit, then one line per shape. DIR's K8 has to take [M, G, A]
+values.
 """
 
 from __future__ import annotations
@@ -57,6 +61,15 @@ def main() -> int:
         closure = chip_smoke.time_ms(lambda: fn(vals), args.iters)
         print(f"{label} N={fi.shape[0]} M={fj.shape[0]}: one-shot "
               f"{one_shot:.4f} ms, closure {closure:.4f} ms", flush=True)
+    pixels = support["pixels"]
+    m = pixels.shape[0]
+    state = chip_smoke.k8_values(m, 58, False, gen).t().reshape(2, 29, m)
+    fn = bilateral.kernel_matmul_fn(pixels)
+    for a in (4, 8):
+        rows = state[:, :a].movedim(-1, 0)  # [M, 2, a], strided
+        closure = chip_smoke.time_ms(lambda: fn(rows), args.iters)
+        print(f"exact C={2 * a} of 58 (width {fn.bufs[2 * a].width}) "
+              f"N={m} M={m}: closure {closure:.4f} ms", flush=True)
     return 0
 
 

@@ -392,3 +392,183 @@ def test_kernel_matmul_fn_matches_one_shot_calls():
             rtol=0, atol=0)
     with pytest.raises(ValueError):
         fn(torch.zeros(69, 3))
+
+
+# Masks of the runner's 29 slots (background, then 28 classes): the live
+# slots of each of its images' two variants.
+_MASKS = {
+    "classes_dead": [True] * 4 + [False] * 25,  # background and 3 classes
+    "background_dead": [False] + [True] * 3 + [False] * 25,
+    "all_live": [True] * 29,
+    "one_class": [False, True] + [False] * 27,
+}
+
+
+@pytest.mark.parametrize("mask,want", [
+    ("classes_dead", (0, 5, [0, 1, 2, 3] + [4] * 25)),
+    ("background_dead", (0, 4, [0, 1, 2, 3] + [0] * 25)),
+    ("all_live", None),
+    ("one_class", (0, 2, [0, 1] + [0] * 27)),
+    ("one_dead", None),  # no two slots known equal
+    ("two_dead", (0, 28, list(range(28)) + [27])),
+    ("gap", (0, 4, [0, 1, 2, 3, 1, 1, 1])),  # slot 2 dead inside the range
+])
+def test_distinct_slots(mask, want):
+    """The range of slots a message runs on: every live slot and the first
+    dead one; the map of every slot to its row there."""
+    valid = {"one_dead": [True] * 28 + [False],
+             "two_dead": [True] * 27 + [False] * 2,
+             "gap": [True, False, False, True, False, False, False]} \
+        .get(mask) or _MASKS[mask]
+    got = port_crf.distinct_slots(np.asarray(valid), len(valid))
+    if want is None:
+        assert got is None
+    else:
+        assert got[:2] == want[:2]
+        np.testing.assert_array_equal(got[2], want[2])
+
+
+def _masked_logits(rng, size, valid):
+    """Two variants of 29 slots on ``_scene``'s texture, the dead slots
+    at the runner's -1e30."""
+    image, logits = _scene(rng, size, size)
+    extra = rng.randn(2, 29, size, size).astype(np.float32) * 0.5
+    extra[:, :4] += np.stack([logits, logits[::-1]])
+    extra[:, ~np.asarray(valid)] = -1e30
+    return _t(extra), _t(image)
+
+
+def _run_recorded(monkeypatch, logits, image, **kw):
+    """Labels and, per ``_normalised_apply`` call (the bilateral message
+    first, then the spatial, each iteration), the state it read and the
+    message it gave."""
+    calls, real = [], port_crf._normalised_apply
+
+    def spy(fn, q, norm):
+        out = real(fn, q, norm)
+        calls.append((q.clone(), out))
+        return out
+
+    monkeypatch.setattr(port_crf, "_normalised_apply", spy)
+    labels = port_crf.mean_field_crf_variants(
+        logits, image, CRFConfig(), xy_scale=torch.tensor([0.4, 0.5]), **kw)
+    monkeypatch.setattr(port_crf, "_normalised_apply", real)
+    return labels, calls
+
+
+def _aten_ops(fn):
+    """The aten operators ``fn`` runs, in order."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn()
+    return [e.name for e in prof.events() if e.name.startswith("aten::")]
+
+
+@pytest.mark.parametrize("mask", list(_MASKS))
+@pytest.mark.parametrize("branch", ["exact_s1", "unmaterialised_s2"])
+def test_channel_valid_keeps_every_state(branch, mask, monkeypatch):
+    """With ``channel_valid`` the exact CRF and the unmaterialised strided
+    CRF (K8 on the distinct slots, the spatial product too) read the same
+    state as without it, for a live background with dead classes, a dead
+    background, one live class, and every slot live, and give the same
+    labels. The plain K8's f32 products sum in an order that may depend
+    on the column count, so the states agree to f32 rounding (1e-5 on
+    probabilities; the seeded readings are 0); the card tests hold the
+    kernel's columns bit-equal. In
+    the exact CRF with every slot live the same operators run, with dead
+    slots one gather more a message."""
+    s = 1 if branch == "exact_s1" else 2
+    if s == 2:
+        monkeypatch.setattr(port_crf, "_MATERIALIZE_LIMIT", 0)
+    logits, image = _masked_logits(np.random.RandomState(51), 16,
+                                   _MASKS[mask])
+    valid = np.asarray(_MASKS[mask])
+    want, want_calls = _run_recorded(monkeypatch, logits, image,
+                                     bilateral_subsample=s)
+    got, got_calls = _run_recorded(monkeypatch, logits, image,
+                                   bilateral_subsample=s, channel_valid=valid)
+    assert torch.equal(got, want)
+    assert len(got_calls) == len(want_calls) == 2 * CRFConfig().num_iters
+    for (q_got, _), (q_want, _) in zip(got_calls, want_calls):
+        assert q_got.shape == (58, 16 * 16)
+        assert (q_got - q_want).abs().max().item() <= 1e-5
+
+    def run(cv):
+        return lambda: port_crf.mean_field_crf_variants(
+            logits, image, CRFConfig(), bilateral_subsample=s,
+            channel_valid=cv)
+
+    if s == 1 and mask == "all_live":
+        assert _aten_ops(run(valid)) == _aten_ops(run(None))
+    elif s == 1 and mask == "classes_dead":
+        deduped, plain = (_aten_ops(run(cv)).count("aten::index_select")
+                          for cv in (valid, None))
+        assert deduped == plain + 2 * CRFConfig().num_iters
+
+
+@pytest.mark.parametrize("case", ["nystrom_s4", "ragged_n"])
+def test_channel_valid_in_the_other_unfused_branches(case, monkeypatch):
+    """The Nystrom CRF (two K8 products and the K_AA^-1 projection) and
+    the materialised kernel under the unfused loop (N = 1600) run on the
+    distinct slots too. Their f32 products sum in an order that depends
+    on the row count, so the states agree to f32 rounding (1e-5 on
+    probabilities; seeded readings under 1e-6) and the labels equal."""
+    size, kw = {"nystrom_s4": (48, dict(bilateral_subsample=4,
+                                        bilateral_mode="nystrom")),
+                "ragged_n": (40, dict(bilateral_subsample=4))}[case]
+    valid = np.asarray(_MASKS["classes_dead"])
+    logits, image = _masked_logits(np.random.RandomState(52), size, valid)
+    want, want_calls = _run_recorded(monkeypatch, logits, image, **kw)
+    got, got_calls = _run_recorded(monkeypatch, logits, image,
+                                   channel_valid=valid, **kw)
+    assert torch.equal(got, want)
+    assert len(got_calls) == len(want_calls) == 2 * CRFConfig().num_iters
+    for (q_got, _), (q_want, _) in zip(got_calls, want_calls):
+        assert (q_got - q_want).abs().max().item() <= 1e-5
+
+
+def test_fused_branch_ignores_channel_valid():
+    """The default branch (K5 once, K6 each iteration) runs the same
+    operators and gives the same labels with and without the keyword."""
+    valid = np.asarray(_MASKS["classes_dead"])
+    logits, image = _masked_logits(np.random.RandomState(53), 32, valid)
+
+    def run(cv):
+        return port_crf.mean_field_crf_variants(
+            logits, image, CRFConfig(), bilateral_subsample=4,
+            channel_valid=cv)
+
+    assert torch.equal(run(valid), run(None))
+    assert _aten_ops(lambda: run(valid)) == _aten_ops(lambda: run(None))
+
+
+def test_crf_rows_counters():
+    """``crf.rows`` and ``crf.rows_run`` sum the state rows and the rows
+    run over the unfused loop's messages (two an iteration) while the
+    tracer is on: 58 and 2 x 5 with a live background and 3 live classes;
+    nothing while it is off, nothing from the fused branch."""
+    from pnp_ovss_tpu_torch.utils.tracing import TRACER
+
+    valid = np.asarray(_MASKS["classes_dead"])
+    logits, image = _masked_logits(np.random.RandomState(54), 32, valid)
+    messages = 2 * CRFConfig().num_iters
+
+    def run(s):
+        port_crf.mean_field_crf_variants(
+            logits, image, CRFConfig(), bilateral_subsample=s,
+            channel_valid=valid)
+
+    TRACER.drain()
+    run(1)
+    assert TRACER.drain()["counters"] == {}
+    TRACER.enable()
+    try:
+        run(1)
+        counted = TRACER.drain()["counters"]
+        run(4)
+        fused = TRACER.drain()["counters"]
+    finally:
+        TRACER.disable()
+    assert counted == {"crf.rows": messages * 58,
+                       "crf.rows_run": messages * 2 * 5}
+    assert fused == {}

@@ -16,9 +16,10 @@ row tile, narrow widths, masked keys and several key tiles; for K8 ragged
 N and M, M != N, 1 to 150 channels, strided values, 8 features, the split
 over j, bit-equal launches, empty inputs and the stalled ring's trap; the
 CRF's exact, Nystrom and general-loop branches on the card against the
-CPU; K7 at
-ragged chunks against K2's rows, K9 at odd S, and a two-rank
-sequence-parallel encode with both ranks on the one card (gloo); the
+CPU; K7 at ragged chunks against K2's rows, K9 at odd S, K8 and the
+exact CRF on the distinct slots of a padded state against the full
+launch, and a two-rank sequence-parallel encode with both ranks on the
+one card (gloo); the
 evaluation path on the card (``make_hist_fn`` over ragged batches against
 numpy, labels kept on the card by ``result(materialize_labels=False)``)
 and the tiny-width CLI on the card against the same run on the CPU; the
@@ -412,6 +413,29 @@ def test_kernel_matmul_exact_shape_fills_the_card(cuda):
     assert err <= 5e-3, err
 
 
+@pytest.mark.parametrize("a,width", [(4, 8), (8, 16)])
+def test_kernel_matmul_on_distinct_rows_equals_the_full_launch(cuda, a,
+                                                               width):
+    """At the exact CRF's shape (N = M = 36864), K8 on the first ``a``
+    slots of each variant of a 2 x 29-slot state, read through a strided
+    [M, 2, a] view, runs at wgmma n = 8 or 16 and is bit-equal to the same
+    columns of the 58-channel launch at n = 64: the columns are summed
+    independently and the j split does not depend on C."""
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    feats = _photo_features(gen)
+    n = feats.shape[0]
+    state = torch.softmax(_randn(gen, 2, 29, n), 1)
+    fn = bilateral.kernel_matmul_fn(feats)
+    full = fn(state.reshape(58, n).t())
+    before = _build.LAUNCHES["gaussian_kernel_matmul"]
+    rows = fn(state[:, :a].movedim(-1, 0))
+    assert _build.LAUNCHES["gaussian_kernel_matmul"] == before + 1
+    assert fn.bufs[58].width == 64 and fn.bufs[2 * a].width == width
+    assert fn.bufs[58].split == fn.bufs[2 * a].split
+    assert torch.equal(rows, full.reshape(n, 2, 29)[:, :, :a]
+                       .reshape(n, 2 * a))
+
+
 def test_kernel_matmul_degree_runs_n8(cuda):
     """The degree launch (C = 1) runs wgmma's n = 8, with a split."""
     gen = torch.Generator(device=cuda).manual_seed(11)
@@ -554,6 +578,62 @@ def test_general_loop_crf_on_card_matches_cpu(cuda, size, c):
     assert launches["crf_fused_iteration"] == 0
     assert launches["gaussian_kernel_matmul"] == 0
     assert agree > 0.99, agree
+
+
+def test_exact_crf_on_distinct_slots_on_card(cuda, monkeypatch):
+    """The exact CRF at the bucket's 192 x 192 with 2 x 29 slots, 4 of them
+    live, with and without ``channel_valid``: each iteration's K8 message
+    on the distinct slots is bit-equal to the 58-row message of the same
+    state; the f32 band product of the spatial message sums in an order
+    cuBLAS may choose by its batch count, so it is held to 1e-6 of the
+    largest; the labels are equal. The keyword adds no synchronisation
+    with the host (the sync debug mode raises on one) and no K8 launch."""
+    logits, image = _crf_scene(17, 192, 29, 12)
+    valid = np.arange(29) < 4
+    logits[:, ~torch.from_numpy(valid)] = -1e30
+    logits, image = logits.to(cuda), image.to(cuda)
+    xy = torch.tensor([0.4, 0.5], device=cuda)
+    calls, real = [], crf._normalised_apply
+
+    def spy(fn, q, norm):
+        out = real(fn, q, norm)
+        calls.append((fn, q.clone(), norm, out))
+        return out
+
+    monkeypatch.setattr(crf, "_normalised_apply", spy)
+    runs = {}
+    for key, cv in (("all", None), ("distinct", valid)):
+        calls.clear()
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            labels = crf.mean_field_crf_variants(
+                logits, image, CRFConfig(), bilateral_subsample=1,
+                xy_scale=xy, channel_valid=cv)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        runs[key] = (labels, list(calls),
+                     _build.LAUNCHES["gaussian_kernel_matmul"])
+    (want, full, k8_all), (got, part, k8_part) = runs["all"], \
+        runs["distinct"]
+    assert k8_all == k8_part == CRFConfig().num_iters + 1
+    assert len(part) == 2 * CRFConfig().num_iters
+    sp_err, state_err = 0.0, 0.0
+    for i, ((fn, q, norm, out), (_, q_all, _, _)) in enumerate(
+            zip(part, full)):
+        assert q.shape == (58, 192 * 192)
+        ref = real(full[i % 2][0], q, norm)
+        if i % 2 == 0:
+            assert torch.equal(out, ref), i
+        else:
+            sp_err = max(sp_err, ((out - ref).abs().max()
+                                  / ref.abs().max()).item())
+        state_err = max(state_err, (q - q_all).abs().max().item())
+    print(f"spatial message max rel err {sp_err:.3g}, state max abs "
+          f"diff {state_err:.3g}")
+    assert sp_err <= 1e-6
+    assert torch.equal(got, want)
 
 
 def test_crf_on_card_matches_cpu(cuda):

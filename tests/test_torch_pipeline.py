@@ -108,8 +108,10 @@ def _tree(spans, i):
 def test_traced_batch_gives_the_span_tree_and_the_same_outputs(results):
     """One batch with the tracer on: the runner's span tree (one
     ``drop.round`` a round, one ``post.crf`` over the batch), one batch id
-    on the submit's spans and its result's; labels and maps bit-equal to
-    the untraced run's."""
+    on the submit's spans and its result's, the counters (the exact CRF's
+    rows: 2 x 5 slots an image, of which the images with 2, 1, 3 and 1
+    classes run 4, 3, 5 and 3 a variant, two messages an iteration);
+    labels and maps bit-equal to the untraced run's."""
     _, prun, _, untraced, (images, cap, rgb, gt) = results
     TRACER.drain()
     TRACER.enable()
@@ -138,7 +140,12 @@ def test_traced_batch_gives_the_span_tree_and_the_same_outputs(results):
                                 ("post.crf", {"images": B}, [])])])
     assert _tree(spans, roots[1]) == ("runner.result", {}, [])
     assert {s["batch"] for s in spans} == {pending.batch}
-    assert data["counters"] == {"runner.batches": 1, "runner.images": B}
+    counters = {"runner.batches": 1, "runner.images": B}
+    if prun.cfg.postprocess.bilateral_subsample == 1:
+        messages = 2 * prun.cfg.postprocess.crf.num_iters
+        counters.update({"crf.rows": messages * 2 * 5 * B,
+                         "crf.rows_run": messages * 2 * (4 + 3 + 5 + 3)})
+    assert data["counters"] == counters
     for name in ("labels_r0", "labels_agg", "maps_r0", "maps_agg"):
         np.testing.assert_array_equal(getattr(got, name),
                                       getattr(untraced, name), err_msg=name)
