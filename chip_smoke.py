@@ -1427,33 +1427,30 @@ def run_pipeline(cfg, runner, inputs, per_batch: dict,
 def capture_round0(runner, on: bool = True) -> tuple:
     """While ``on``, spies on ``runner``'s next batch: its round-0 ViT
     encode (a forward hook on the model's visual encoder) and its round-0
-    GradCAM of the attribution head (through the runner module's
-    ``gradcam_from_embeds``), both as f32 on the host. Returns (the record,
-    a function that removes the spies)."""
-    from pnp_ovss_tpu_torch.pipeline import runner as runner_mod
-
+    GradCAM of the attribution head (a wrapper around the runner's round
+    step, which keeps every patch in round 0), both as f32 on the host.
+    Returns (the record, a function that removes the spies)."""
     rec = {}
     if not on:
         return rec, lambda: None
-    real = runner_mod.gradcam_from_embeds
-    head = runner.cfg.attribution.head
+    real = runner._round_step
 
-    def spy(*args, **kw):
-        gc, logits = real(*args, **kw)
+    def spy(*args):
+        dropped, gc = real(*args)
         if "gradcam" not in rec:
-            rec["gradcam"] = gc[0, :, head].float().cpu()
-        return gc, logits
+            rec["gradcam"] = gc.float().cpu()
+        return dropped, gc
 
     def hook(_module, _inputs, out):
         if "encode" not in rec:
             rec["encode"] = out.float().cpu()
 
     handle = runner.model.visual_encoder.register_forward_hook(hook)
-    runner_mod.gradcam_from_embeds = spy
+    runner._round_step = spy
 
     def remove():
         handle.remove()
-        runner_mod.gradcam_from_embeds = real
+        runner._round_step = real
     return rec, remove
 
 

@@ -10,6 +10,7 @@ under ``csrc/``, built with ``nvcc`` at first use and bound with ctypes
 and a plain PyTorch version of the same function on a CPU tensor.
 """
 
+import numpy as np
 import torch
 
 
@@ -22,3 +23,16 @@ def resolve_device(device) -> torch.device:
             "device 'cuda' requested but torch.cuda.is_available() is false; "
             "pass device='cpu' to run the plain PyTorch versions")
     return dev
+
+
+def to_device(x, device) -> torch.Tensor:
+    """A host array on ``device``, queued on the current stream without
+    waiting for the card: a pageable copy to a card synchronises the
+    stream, so the copy goes through pinned memory (PyTorch's caching host
+    allocator keeps the pinned buffer until the copy has run). On the CPU,
+    the array's own memory."""
+    t = torch.as_tensor(np.asarray(x))
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

@@ -30,19 +30,38 @@ from torch.nn import functional as F
 from pnp_ovss_tpu_torch.parallel.tensor import gather_heads
 
 
+def zero_tap(model, b: int, t: int, s: int, device) -> torch.Tensor:
+    """The zeros tap GradCAM differentiates against: [L, B, H/tp, T, S]
+    f32 for the model's L captured layers and this rank's heads, a leaf
+    that requires a gradient."""
+    heads = model.cfg.bert.num_heads
+    tp = getattr(model, "tp", None)
+    local = heads if tp is None else heads // tp.size
+    n_layers = len(model.text_encoder.capture_layers)
+    return torch.zeros((n_layers, b, local, t, s), dtype=torch.float32,
+                       device=device, requires_grad=True)
+
+
 def gradcam_from_embeds(model, image_embeds: torch.Tensor,
                         input_ids: torch.Tensor,
                         attention_mask: torch.Tensor, *, grid: int):
     """-> (gradcam [L, B, H, T-1, grid, grid] f32, logits [B, 2]) for the
     model's L captured BERT layers, every head."""
     b, t = input_ids.shape
-    s = image_embeds.shape[1]
+    tap = zero_tap(model, b, t, image_embeds.shape[1], image_embeds.device)
+    return gradcam_at_tap(model, tap, image_embeds, input_ids,
+                          attention_mask, grid=grid)
+
+
+def gradcam_at_tap(model, tap: torch.Tensor, image_embeds: torch.Tensor,
+                   input_ids: torch.Tensor, attention_mask: torch.Tensor, *,
+                   grid: int):
+    """``gradcam_from_embeds`` through a given ``zero_tap`` (a CUDA graph
+    keeps one as a static buffer); the tap is only read."""
+    b, t = input_ids.shape
     heads = model.cfg.bert.num_heads
     tp = getattr(model, "tp", None)
-    local = heads if tp is None else heads // tp.size
     n_layers = len(model.text_encoder.capture_layers)
-    tap = torch.zeros((n_layers, b, local, t, s), dtype=torch.float32,
-                      device=image_embeds.device, requires_grad=True)
     with torch.enable_grad():
         logits, cams = model.itm_from_embeds(image_embeds, input_ids,
                                              attention_mask, cross_tap=tap)

@@ -14,6 +14,8 @@ import functools
 import numpy as np
 import torch
 
+from pnp_ovss_tpu_torch import to_device
+
 
 def _gaussian_kernel1d(sigma: float, radius: int) -> np.ndarray:
     x = np.arange(-radius, radius + 1, dtype=np.float64)
@@ -53,11 +55,12 @@ def gaussian_blur2d(x: torch.Tensor, sigma: float, *,
     lowp = x.dtype == torch.bfloat16
 
     def operand(a):
-        a = torch.as_tensor(a, device=x.device)
         return a.to(torch.bfloat16).float() if lowp else a.float()
 
-    bh = operand(_blur_matrix_np(h, float(sigma), truncate))
-    bw = operand(_blur_matrix_np(w, float(sigma), truncate))
+    bh = operand(to_device(_blur_matrix_np(h, float(sigma), truncate),
+                           x.device))
+    bw = operand(to_device(_blur_matrix_np(w, float(sigma), truncate),
+                           x.device))
     y = torch.matmul(bh, x.float())
     y = operand(y)
     return torch.matmul(y, bw.transpose(0, 1))

@@ -10,6 +10,8 @@ import functools
 import numpy as np
 import torch
 
+from pnp_ovss_tpu_torch import to_device
+
 
 @functools.lru_cache(maxsize=256)
 def _interp_matrix_np(n_in: int, n_out: int) -> np.ndarray:
@@ -35,6 +37,6 @@ def resize_bilinear_align_corners(x: torch.Tensor, out_h: int,
                                   out_w: int) -> torch.Tensor:
     """x [..., H, W] -> f32 [..., out_h, out_w]."""
     h, w = x.shape[-2:]
-    ah = torch.as_tensor(_interp_matrix_np(h, out_h), device=x.device)
-    aw = torch.as_tensor(_interp_matrix_np(w, out_w), device=x.device)
+    ah = to_device(_interp_matrix_np(h, out_h), x.device)
+    aw = to_device(_interp_matrix_np(w, out_w), x.device)
     return torch.matmul(torch.matmul(ah, x.float()), aw.transpose(0, 1))

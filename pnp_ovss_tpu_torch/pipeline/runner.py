@@ -40,8 +40,11 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from pnp_ovss_tpu_torch import resolve_device
+from pnp_ovss_tpu_torch import resolve_device, to_device
 from pnp_ovss_tpu_torch.attribution.gradcam import gradcam_from_embeds
+from pnp_ovss_tpu_torch.attribution.gradcam_graph import (
+    GradcamGraphs, graphable,
+)
 from pnp_ovss_tpu_torch.config import PipelineConfig
 from pnp_ovss_tpu_torch.data.transforms import CLIP_MEAN, CLIP_STD
 from pnp_ovss_tpu_torch.evalx.metrics import batch_hist_t
@@ -175,6 +178,12 @@ class SegmentationRunner:
         elif encode_parallel == "pp":
             keep_stage_blocks(model.visual_encoder, axis)
         self.model = model.to(self.device)
+        # The drop rounds' BERT + GradCAM from CUDA graphs where it can be
+        # (``attribution/gradcam_graph.py``); None runs it eagerly.
+        self._graphs = None
+        if graphable(self.model, self.device):
+            self._graphs = GradcamGraphs(self.model, grid=cfg.model.vit.grid,
+                                         head=cfg.attribution.head)
         vit = self.model.visual_encoder
         if encode_parallel == "sp":
             def embed(images):
@@ -191,7 +200,9 @@ class SegmentationRunner:
             patch_size=cfg.model.vit.patch_size)
 
     def _to_dev(self, x) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x), device=self.device)
+        # Queued without a wait: a sync here would drain the device's
+        # backlog of drop rounds before the host could launch the CRFs.
+        return to_device(x, self.device)
 
     def _normalize(self, images_u8: torch.Tensor) -> torch.Tensor:
         """[B, S, S, 3] uint8 -> CLIP-normalised bf16, on the device."""
@@ -199,6 +210,8 @@ class SegmentationRunner:
         return ((x - self._mean) / self._std).to(torch.bfloat16)
 
     def _bert_gradcam(self, embeds, ids, mask):
+        if self._graphs is not None:
+            return self._graphs(embeds, ids, mask)
         cfg = self.cfg
         gc, logits = gradcam_from_embeds(self.model, embeds, ids, mask,
                                          grid=cfg.model.vit.grid)

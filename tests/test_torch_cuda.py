@@ -27,7 +27,11 @@ synthetic postprocess gate's device side (strided s=4 and exact, bucket
 192) on the card against the CPU, the search's all-layer GradCAM
 ensemble at odd text lengths, K2 at the CLIP vision tower's 577 tokens
 (keys masked past 535 too) and the narrow CLIP's ``encode_image`` on the
-card against the CPU.
+card against the CPU; the runner's GradCAM replayed from CUDA graphs
+against the eager call (tiny and 336 px full widths; results the next
+replay leaves alone; a graph per batch size, eager past the cache; the
+tiny pipeline graphed against eager); ``to_device`` and a whole
+``submit_batch`` without one synchronisation.
 """
 
 import dataclasses
@@ -1250,3 +1254,217 @@ def test_tracer_spans_share_the_device_trace_clock(cuda):
             <= s["end_ns"]
         assert s["start_ns"] - 50_000 <= k.start_ns() < k.end_ns() \
             <= s["end_ns"] + 50_000
+
+
+def _gradcam_case(cuda, size, b=None):
+    """(model, grid, head, inputs(seed, b) -> (embeds, ids, mask)) at the
+    tiny config (capture layer 0 of 2, head 1, T = 12) or at 336 px full
+    widths (layer 8, head 9; B = 35, T = 64, S = 442, width 1024, bf16):
+    random weights, embeddings of the ViT output's scale and masks with
+    padded tails."""
+    from pnp_ovss_tpu_torch.config import PipelineConfig
+    from pnp_ovss_tpu_torch.models.blip_itm import init_blip_itm
+
+    if size == "tiny":
+        cfg, t, b0 = PipelineConfig.tiny(), 12, 2
+        layer, head = 1, 1
+    else:
+        cfg, t, b0 = PipelineConfig.reference_default(), 64, 35
+        layer, head = cfg.attribution.layer, cfg.attribution.head
+    m = cfg.model
+    model = init_blip_itm(m, capture_layers=(layer - 1,), seed=3,
+                          device=cuda)
+    dtype = model.text_encoder.embed_norm.out_dtype
+
+    def inputs(seed, b=b0):
+        gen = torch.Generator().manual_seed(seed)
+        embeds = torch.randn((b, m.vit.seq_len, m.bert.encoder_width),
+                             generator=gen).to(dtype)
+        ids = torch.randint(5, m.bert.vocab_size - 2, (b, t), generator=gen)
+        ids[:, 0] = m.bert.enc_token_id
+        mask = torch.ones((b, t), dtype=torch.int32)
+        for i in range(b):
+            mask[i, t - 1 - (i % (t // 2)):] = 0
+        return tuple(x.to(cuda) for x in (embeds, ids, mask))
+
+    return model, m.vit.grid, head, inputs
+
+
+def _eager_selection(model, grid, head, embeds, ids, mask):
+    from pnp_ovss_tpu_torch.attribution.gradcam import gradcam_from_embeds
+
+    gc, logits = gradcam_from_embeds(model, embeds, ids, mask, grid=grid)
+    return gc[0, :, head], logits
+
+
+@pytest.mark.parametrize("size", ["tiny", "336"])
+def test_graphed_gradcam_equals_eager(cuda, size):
+    """The runner's BERT forward, tap backward and GradCAM combine of one
+    layer and head, replayed from a CUDA graph, equal the eager call bit
+    for bit (the same kernels on the same shapes): at the capture's first
+    replay, at a later replay, and at 336 px full widths."""
+    from pnp_ovss_tpu_torch.attribution.gradcam_graph import GradcamGraphs
+
+    model, grid, head, inputs = _gradcam_case(cuda, size)
+    graphs = GradcamGraphs(model, grid=grid, head=head)
+    for seed in (0, 1):
+        x = inputs(seed)
+        want = _eager_selection(model, grid, head, *x)
+        got = graphs(*x)
+        assert want[0].abs().max() > 0
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and g.dtype == w.dtype
+            assert torch.equal(g, w), (g - w).abs().max().item()
+    assert len(graphs._graphs) == 1
+
+
+def test_graph_replay_leaves_returned_results_alone(cuda):
+    """Two calls queued back to back with other inputs: the second gives
+    its own results, and the first call's tensors (clones outside the
+    graph's pool) read the same after it."""
+    from pnp_ovss_tpu_torch.attribution.gradcam_graph import GradcamGraphs
+
+    model, grid, head, inputs = _gradcam_case(cuda, "336")
+    graphs = GradcamGraphs(model, grid=grid, head=head)
+    a_in, b_in = inputs(0), inputs(1)
+    a = graphs(*a_in)
+    b = graphs(*b_in)
+    want_a = _eager_selection(model, grid, head, *a_in)
+    want_b = _eager_selection(model, grid, head, *b_in)
+    (entry,) = graphs._graphs.values()
+    pool = {t.untyped_storage().data_ptr() for t in entry.outputs}
+    for got, want in zip(a + b, want_a + want_b):
+        assert torch.equal(got, want)
+        assert got.untyped_storage().data_ptr() not in pool
+    assert not torch.equal(a[0], b[0])
+
+
+def test_graph_cache_captures_each_batch_size_then_runs_eager(cuda):
+    """Batch sizes 1 .. MAX_GRAPHS + 1, then 1 again, with the tracer on:
+    a capture (and a ``bert.capture`` span) for each of the first
+    MAX_GRAPHS sizes, one eager call past them, a replay for every graphed
+    call; each result equal to the eager call's."""
+    from pnp_ovss_tpu_torch.attribution.gradcam_graph import (
+        MAX_GRAPHS, GradcamGraphs,
+    )
+    from pnp_ovss_tpu_torch.utils.tracing import TRACER
+
+    model, grid, head, inputs = _gradcam_case(cuda, "tiny")
+    graphs = GradcamGraphs(model, grid=grid, head=head)
+    sizes = list(range(1, MAX_GRAPHS + 2)) + [1]
+    TRACER.drain()
+    TRACER.enable()
+    try:
+        for b in sizes:
+            x = inputs(b, b)
+            got = graphs(*x)
+            want = _eager_selection(model, grid, head, *x)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+    finally:
+        TRACER.disable()
+    data = TRACER.drain()
+    assert len(graphs._graphs) == MAX_GRAPHS
+    assert data["counters"] == {"bert.graph_captures": MAX_GRAPHS,
+                                "bert.graph_replays": len(sizes) - 1,
+                                "bert.graph_eager": 1}
+    assert [s["name"] for s in data["spans"]] == \
+        ["bert.capture"] * MAX_GRAPHS
+
+
+def test_graphed_runner_matches_the_eager_runner(cuda):
+    """The tiny pipeline on the card, two batches in flight, with its
+    GradCAM from graphs and with the eager call: maps and labels equal;
+    one graph captured, one replay a drop round."""
+    from pnp_ovss_tpu_torch.text.captions import build_caption_batch
+    from pnp_ovss_tpu_torch.text.wordpiece import WordPieceTokenizer
+    from pnp_ovss_tpu_torch.utils.tracing import TRACER
+
+    cfg, runner = _tiny_runner(cuda)
+    assert runner._graphs is not None
+    tok = WordPieceTokenizer.toy(["a", "picture", "of", "dog", "cat"])
+    cap = build_caption_batch([["dog", "cat"], ["cat"]], tok,
+                              max_text_len=16, max_classes=cfg.max_classes)
+    rng = np.random.RandomState(0)
+    batches = [(rng.randint(0, 256, (2, 48, 48, 3)).astype(np.uint8),
+                rng.randint(0, 256, (2, 32, 32, 3)).astype(np.float32))
+               for _ in range(2)]
+
+    def run():
+        pending = [runner.submit_batch(img, cap, rgb, return_maps=True)
+                   for img, rgb in batches]
+        return [p.result() for p in pending]
+
+    TRACER.drain()
+    TRACER.enable()
+    try:
+        graphed = run()
+    finally:
+        TRACER.disable()
+    counters = TRACER.drain()["counters"]
+    assert counters["bert.graph_captures"] == len(runner._graphs._graphs) \
+        == 1
+    assert counters["bert.graph_replays"] == 2 * cfg.drop.num_rounds
+    runner._graphs = None
+    eager = run()
+    for g, e in zip(graphed, eager):
+        for name in ("labels_r0", "labels_agg", "maps_r0", "maps_agg"):
+            np.testing.assert_array_equal(getattr(g, name), getattr(e, name),
+                                          err_msg=name)
+
+
+def test_to_device_queues_the_copy_without_a_wait(cuda):
+    """A host array goes to the card behind ~0.1 s of queued work without
+    any synchronisation (sync debug mode "error" raises on one), and
+    arrives whole although its numpy source is overwritten at once and
+    more copies of the same size follow (the pinned buffer is kept until
+    its copy has run)."""
+    from pnp_ovss_tpu_torch import to_device
+
+    rng = np.random.RandomState(0)
+    a = rng.randint(0, 256, (35, 336, 336, 3)).astype(np.uint8)
+    want = a.copy()
+    torch.cuda._sleep(200_000_000)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = to_device(a, cuda)
+        a[:] = 0
+        more = [to_device(rng.randint(0, 256, a.shape).astype(np.uint8),
+                          cuda) for _ in range(3)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert got.dtype == torch.uint8 and got.device.type == "cuda"
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    assert not torch.equal(more[0], got)
+
+
+@pytest.mark.parametrize("subsample", [4, 1], ids=["strided", "exact"])
+def test_submit_batch_never_waits_for_the_card(cuda, subsample):
+    """After the first batch (which captures the GradCAM graph), a whole
+    tiny-pipeline submit queues its work without one synchronisation
+    (sync debug mode "error"), and its labels equal the first batch's on
+    the same inputs."""
+    from pnp_ovss_tpu_torch.text.captions import build_caption_batch
+    from pnp_ovss_tpu_torch.text.wordpiece import WordPieceTokenizer
+
+    cfg, runner = _tiny_runner(cuda)
+    runner.cfg = cfg = dataclasses.replace(
+        cfg, postprocess=dataclasses.replace(
+            cfg.postprocess, bilateral_subsample=subsample))
+    tok = WordPieceTokenizer.toy(["a", "picture", "of", "dog", "cat"])
+    cap = build_caption_batch([["dog", "cat"], ["cat"]], tok,
+                              max_text_len=16, max_classes=cfg.max_classes)
+    rng = np.random.RandomState(1)
+    images = rng.randint(0, 256, (2, 48, 48, 3)).astype(np.uint8)
+    rgb = rng.randint(0, 256, (2, 32, 32, 3)).astype(np.float32)
+    first = runner.submit_batch(images, cap, rgb, gt_sizes=[(40, 30)] * 2) \
+        .result()
+    torch.cuda._sleep(100_000_000)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = runner.submit_batch(images, cap, rgb,
+                                      gt_sizes=[(40, 30)] * 2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    second = pending.result()
+    np.testing.assert_array_equal(second.labels_agg, first.labels_agg)
+    np.testing.assert_array_equal(second.labels_r0, first.labels_r0)
