@@ -23,9 +23,13 @@ Phases, each of which exits non-zero on failure:
    sequence; K9 on [B, H, S, D] views at four shapes; K2 also at the
    CLIP scorer's shape (ViT-L/14 at 336 px: 8 images x 577 tokens, 16
    heads of 64; also with keys masked past 535), a further entry of its
-   ``shapes``;
+   ``shapes``; ``crf_spatial_operands`` on K6's output at the fused
+   CRF's shape (qsub bit-equal, msp within 1e-5 relative L2 before its
+   rounding and one bf16 ulp after) and ``crf_first_state`` on K5's
+   K^T (one bf16 ulp; norm_bi and nb within 1e-6 relative);
 4. reference: each branch of the CRF alone on the card against the CPU
-   on one seeded scene (strided s=4 through K5 + K6, the general loop on
+   on one seeded scene (strided s=4 through K5, ``crf_first_state``,
+   ``crf_spatial_operands`` and K6, the general loop on
    K5's kernel for 66 state rows and for N = 1600, exact through K8,
    Nystrom through K5 + K8); then narrow configurations of the whole
    pipeline on the card against the same weights and inputs on the CPU
@@ -418,6 +422,8 @@ def kernels_vs_plain(cfg):
         plain_ms=time_ms(lambda: bilateral.crf_iteration_plain(
             *args, v=vv, c=c, out_dtype=torch.bfloat16), 5),
         bound_ms=bms, bound_by=by, library_ms=None), nbytes)
+    rows["crf_spatial_operands"] = spatial_operands_row(cfg, kt, out6)
+    rows["crf_first_state"] = first_state_row(cfg, kt, gen)
     for row in rows.values():
         for sh in row.get("shapes", [row]):
             print(f"  {row['name']} {sh.get('shape', '')}: {sh['ms']:.4f} ms "
@@ -425,6 +431,118 @@ def kernels_vs_plain(cfg):
                   f" by {sh.get('bound_by', row['bound_by'])}, library "
                   f"{sh['library_ms']})", flush=True)
     return rows
+
+
+def band_taps(sigma: float, dim: int) -> int:
+    """Taps a side of the spatial band whose f32 entries are not 0 (the
+    kernel's cut): the least c with exp(-(c / sigma)^2 / 2) == 0 in f32,
+    at most ``dim``."""
+    import numpy as np
+
+    c = 1
+    while c < dim and np.exp(np.float32(-0.5) * np.square(
+            np.float32(c) / np.float32(sigma))) != 0:
+        c += 1
+    return c
+
+
+def spatial_operands_row(cfg, kt, state):
+    """Phase 3 for ``crf_spatial_operands`` as the fused loop calls it,
+    once per image and iteration, on the state K6 returned (R = 64 rows,
+    pad rows 0) at the first VOC-like ground truth's spatial sigmas:
+    qsub bit-equal to the plain product rounded once, msp before its
+    rounding within 1e-5 relative L2 of the plain f32 product and after
+    it within one bf16 ulp. The bound counts the band's f32 FMAs whose
+    entries are not 0, and each byte once. Returns its kernels-line
+    row."""
+    import torch
+
+    from pnp_ovss_tpu_torch.ops import crf
+
+    hb, sub = BUCKET, cfg.postprocess.bilateral_subsample
+    crf_cfg = cfg.postprocess.crf
+    gt_h, gt_w = GT_SIZES[0]
+    sigma = (crf_cfg.pos_xy_std * hb / gt_h, crf_cfg.pos_xy_std * hb / gt_w)
+    sig = torch.tensor(sigma, device=state.device)
+    m_pad, n = kt.shape
+    r, rows = state.shape[0], 2 * (cfg.max_classes + 1)
+    norm_bi = torch.rsqrt(crf._materialised_degree(kt).clamp(min=1e-20))
+    kw = dict(h=hb, w=hb, s=sub, m_pad=m_pad, pos_w=crf_cfg.pos_w)
+    msp, qsub = crf.crf_spatial_operands(state, norm_bi, sig, rows=rows,
+                                         **kw)
+    msp32, _ = crf.crf_spatial_operands(state, norm_bi, sig, rows=rows,
+                                        msp_dtype=torch.float32, **kw)
+    want16, want_qsub = crf.spatial_operands_plain(state, norm_bi, sig,
+                                                   **kw)
+    want32, _ = crf.spatial_operands_plain(state, norm_bi, sig,
+                                           msp_dtype=torch.float32, **kw)
+    check("crf_spatial_operands qsub vs plain",
+          (qsub.float() - want_qsub.float()).abs().max().item(), 0.0)
+    rel = ((msp32 - want32).norm() / want32.norm()).item()
+    check("crf_spatial_operands msp f32 vs plain (relative L2)", rel, 1e-5)
+    ulps = (msp.view(torch.int16).int()
+            - want16.view(torch.int16).int()).abs().max().item()
+    check("crf_spatial_operands msp vs plain (bf16 ulps)", ulps, 1)
+    if msp[rows:].any() or qsub[rows:].any():
+        raise SystemExit("FAIL: crf_spatial_operands pad rows not 0")
+    taps = sum(2 * band_taps(sg, hb) - 1 for sg in sigma)
+    nbytes = 2 * r * n * 2 + r * m_pad * 2 + n * 4
+    bms, by = bound_ms(nbytes, 2.0 * rows * n * taps, F32_FLOPS)
+    return with_rate(dict(
+        name="crf_spatial_operands", route="cuda",
+        source="pnp_ovss_tpu_torch/csrc/crf_spatial.cu",
+        replaces="none (XLA: pnp_ovss_tpu/ops/crf.py:476-544)",
+        max_abs_err=rel, bf16_ulps=ulps,
+        ms=time_ms(lambda: crf.crf_spatial_operands(
+            state, norm_bi, sig, rows=rows, **kw), 50),
+        plain_ms=time_ms(lambda: crf.spatial_operands_plain(
+            state, norm_bi, sig, **kw), 10),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        dense_ops_bound_ms=1e3 * 2.0 * rows * 2 * hb ** 3 / F32_FLOPS,
+        taps=taps, sigma=list(sigma)), nbytes)
+
+
+def first_state_row(cfg, kt, gen):
+    """Phase 3 for ``crf_first_state`` as the fused loop calls it, once an
+    image, on K5's ``kt``: two variants of max_classes + 1 slots over the
+    bucket's pixels, bf16 logits with the slots past 4 classes at the
+    runner's disabled value: the state and its log within one bf16 ulp
+    of the plain version, pad rows 0, norm_bi and nb within 1e-6
+    relative. Bound by its bytes (K^T's the most). Returns its
+    kernels-line row."""
+    import torch
+
+    from pnp_ovss_tpu_torch.ops import crf
+    from pnp_ovss_tpu_torch.pipeline.runner import _DISABLED
+
+    vv, c, n = 2, cfg.max_classes + 1, kt.shape[1]
+    r = -(-(vv * c) // 16) * 16
+    nb_scale = cfg.postprocess.crf.bi_w / 255.0
+    logits = torch.randn((vv, c, n), generator=gen, device=gen.device) * 3
+    logits[:, 5:] = _DISABLED
+    logits = logits.to(torch.bfloat16)
+    (got, norms), (want, want_norms) = (
+        crf.crf_first_state(logits, kt, r, nb_scale),
+        crf.first_state_plain(logits, kt, r, nb_scale))
+    ulps = (got.view(torch.int16).int()
+            - want.view(torch.int16).int()).abs().max().item()
+    check("crf_first_state vs plain (bf16 ulps)", ulps, 1)
+    rel = ((norms - want_norms).abs() / want_norms).max().item()
+    check("crf_first_state norms vs plain (relative)", rel, 1e-6)
+    if got[:, vv * c:].any():
+        raise SystemExit("FAIL: crf_first_state pad rows not 0")
+    nbytes = logits.numel() * 2 + kt.numel() + got.numel() * 2 + n * 8
+    bms, by = bound_ms(nbytes, 0.0, F32_FLOPS)
+    return with_rate(dict(
+        name="crf_first_state", route="cuda",
+        source="pnp_ovss_tpu_torch/csrc/crf_spatial.cu",
+        replaces="none (XLA: pnp_ovss_tpu/ops/crf.py:190-191, :459-462, "
+        ":502)",
+        max_abs_err=float(ulps), norms_rel_err=rel,
+        ms=time_ms(lambda: crf.crf_first_state(logits, kt, r, nb_scale), 50),
+        plain_ms=time_ms(
+            lambda: crf.first_state_plain(logits, kt, r, nb_scale), 20),
+        bound_ms=bms, bound_by=by, library_ms=None), nbytes)
 
 
 # The CLIP scorer's batch: the 2K masked images (positives, then black
@@ -1030,7 +1148,8 @@ def narrow_config(image_size: int, hidden_size: int = 128,
 _VIT_336 = ("ln_matmul", "flash_mha_flat_qkv", "ln_mlp_residual")
 _VIT_SP = ("ln_matmul", "flash_mha_flat_xlen", "ln_mlp_residual")
 _K5, _K8 = "gaussian_kernel_materialize", "gaussian_kernel_matmul"
-_CRF_S4 = (_K5, "crf_fused_iteration")
+_CRF_S4 = (_K5, "crf_first_state", "crf_spatial_operands",
+           "crf_fused_iteration")
 
 # Phase 4's CRF branches alone: (label, scene size, channels per variant,
 # CRF settings, kernels the card launches; every other kernel stays at 0,
@@ -1353,10 +1472,12 @@ FULL_RUNS = (
 def expected_launches(cfg, vit_kernels, bucket: int = BUCKET) -> dict:
     """Launches per batch of every kernel on one run's path. The ViT
     kernels launch once per layer and drop round. The CRF runs once per
-    image: the materialised strided CRF launches K5 once and K6 once per
-    iteration; the exact and unmaterialised CRFs launch K8 once per
-    message (the degree, then each iteration); Nystrom launches K5 once
-    (the anchor Gram matrix) and K8 twice per message."""
+    image: the materialised strided CRF launches K5 and
+    ``crf_first_state`` once, then ``crf_spatial_operands`` and K6 once
+    per iteration each; the exact
+    and unmaterialised CRFs launch K8 once per message (the degree, then
+    each iteration); Nystrom launches K5 once (the anchor Gram matrix) and
+    K8 twice per message."""
     from pnp_ovss_tpu_torch.ops import _build
     from pnp_ovss_tpu_torch.ops.crf import _MATERIALIZE_LIMIT
 
@@ -1370,7 +1491,8 @@ def expected_launches(cfg, vit_kernels, bucket: int = BUCKET) -> dict:
     if not nystrom and s > 1 and n * m <= _MATERIALIZE_LIMIT:
         if 2 * (cfg.max_classes + 1) > 64:
             raise ValueError("a full-width run takes the fused CRF iteration")
-        want["gaussian_kernel_materialize"] = b
+        want["gaussian_kernel_materialize"] = want["crf_first_state"] = b
+        want["crf_spatial_operands"] = b * iters
         want["crf_fused_iteration"] = b * iters
     else:
         want[_K8] = b * (iters + 1) * (2 if nystrom else 1)

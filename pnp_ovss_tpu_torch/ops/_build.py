@@ -47,6 +47,10 @@ SOURCES: Dict[str, Dict[str, list]] = {
     "crf_iteration": {
         "crf_fused_iteration": [_P, _P, _P, _P, _P, _P] + [_I] * 5 + [_P],
     },
+    "crf_spatial": {
+        "crf_spatial_operands": [_P] * 5 + [_I] * 6 + [_F, _I, _P],
+        "crf_first_state": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
+    },
     "crf_matmul": {
         "gaussian_kernel_matmul": [_P] * 6 + [_I] * 7 + [_L, _I, _P],
         "gaussian_kernel_matmul_stall": [_P],
@@ -76,6 +80,8 @@ LAUNCHES: Dict[str, int] = {
     "flash_mha": 0,
     "gaussian_kernel_materialize": 0,
     "crf_fused_iteration": 0,
+    "crf_spatial_operands": 0,
+    "crf_first_state": 0,
     "gaussian_kernel_matmul": 0,
 }
 

@@ -9,8 +9,11 @@ normalised; 10 iterations of ``Q <- softmax(-U + sum_m w_m K'_m Q)``.
 Every branch of the JAX package's ``mean_field_crf_variants`` is ported:
 
 - the default, strided s > 1 with the kernel K^T materialised once per
-  image as uint8 by K5, each iteration one fused kernel K6 over a bf16
-  state, the spatial normaliser folded into the band matrices
+  image as uint8 by K5 and the loop's set-up made by one launch
+  (``crf_first_state``, ``csrc/crf_spatial.cu``), then each iteration two
+  launches over a bf16 state: ``crf_spatial_operands`` (same source)
+  makes the spatial message, with the normaliser folded into the band
+  matrices, and the strided operand, then the fused kernel K6
   (``crf.py:267-325``, ``:476-544``);
 - the same materialised kernel under the unfused loop (``crf.py:384-390``,
   ``:546-563``) where K6 cannot run: more than 64 state rows, or N not a
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 
 from pnp_ovss_tpu_torch.config import CRFConfig
+from pnp_ovss_tpu_torch.ops import _build
 from pnp_ovss_tpu_torch.ops.bilateral import (
     KT_QUANT_SCALE,
     crf_fused_iteration,
@@ -82,6 +86,150 @@ def bilateral_features(image_rgb: torch.Tensor, sxy, srgb: float
 def _apply_separable(kh, kw, q):
     """kh @ Q @ kw^T per leading index (kh, kw symmetric)."""
     return torch.matmul(torch.matmul(kh, q.float()), kw.transpose(0, 1))
+
+
+def _take_j_pad(x, h: int, w: int, s: int, m_pad: int) -> torch.Tensor:
+    """[..., h*w] -> [..., M_pad]: every s-th pixel per axis, then zero
+    pad columns."""
+    xs = x.unflatten(-1, (h, w))[..., ::s, ::s].flatten(-2)
+    return torch.nn.functional.pad(xs, (0, m_pad - xs.shape[-1]))
+
+
+def spatial_operands_plain(q, norm_bi, sigma, *, h: int, w: int, s: int,
+                           m_pad: int, pos_w: float,
+                           msp_dtype=torch.bfloat16,
+                           qsub_dtype=torch.bfloat16):
+    """Plain version of ``crf_spatial_operands``: the band matrices of
+    ``sigma`` with the spatial normaliser folded in (the exact rank-1
+    fold, ``crf.py:505-522``: khp = n_h kh n_h; valid because the fused
+    branch keeps the self term), the f32 separable
+    product times ``pos_w`` in ``msp_dtype``, and the strided state times
+    ``norm_bi`` at the anchors, zero pad columns, in ``qsub_dtype`` (f32
+    keeps the product unrounded)."""
+    r = q.shape[0]
+    kh, kw = spatial_band_matrices(h, w, sigma)
+    nh = torch.rsqrt(torch.clamp(kh.sum(1), min=1e-20))
+    nw = torch.rsqrt(torch.clamp(kw.sum(1), min=1e-20))
+    khp = nh[:, None] * kh * nh[None, :]
+    kwp = nw[:, None] * kw * nw[None, :]
+    msp = pos_w * _apply_separable(khp, kwp, q.reshape(r, h, w)) \
+        .reshape(r, h * w)
+    qsub = _take_j_pad(q, h, w, s, m_pad) * _take_j_pad(norm_bi, h, w, s,
+                                                         m_pad)
+    return msp.to(msp_dtype), qsub.to(qsub_dtype)
+
+
+def crf_spatial_operands(q: torch.Tensor, norm_bi: torch.Tensor,
+                         sigma: torch.Tensor, *, h: int, w: int, s: int,
+                         m_pad: int, rows: int, pos_w: float,
+                         msp_dtype=torch.bfloat16):
+    """K6's two operands of one fused iteration from the state ``q`` [R,
+    h*w] bf16 -> (msp [R, h*w] in ``msp_dtype``, bf16 or f32: ``pos_w``
+    times the normalised separable spatial product of each row; qsub [R,
+    M_pad]: ``q * norm_bi`` at every s-th pixel per axis, zero pad
+    columns). ``norm_bi`` holds h*w f32 ([1, N] or [N]); ``sigma`` [2] f32
+    is (sigma_y, sigma_x). Rows >= ``rows`` must be 0 in ``q`` (the fused
+    loop's pad rows); they stay 0.
+
+    On a CUDA tensor one launch of ``csrc/crf_spatial.cu`` (qsub bf16,
+    bit-equal to the plain product rounded once); on a CPU tensor the
+    plain version, qsub kept f32 as the CPU's K6 takes it. Counts
+    ``crf.spatial_launches`` either way."""
+    r, n = q.shape[0], h * w
+    # name: (tensor, dtype, shape fits)
+    want = {"q": (q, torch.bfloat16, tuple(q.shape) == (r, n)),
+            "norm_bi": (norm_bi, torch.float32, norm_bi.numel() == n),
+            "sigma": (sigma, torch.float32, tuple(sigma.shape) == (2,))}
+    for name, (t, dtype, fits) in want.items():
+        if t.dtype != dtype or not fits:
+            raise ValueError(f"crf_spatial_operands: {name} must be {dtype} "
+                             f"(h={h}, w={w}), got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"crf_spatial_operands: {name} must be "
+                             "contiguous")
+    if msp_dtype not in (torch.bfloat16, torch.float32) or s < 1 \
+            or m_pad < -(-h // s) * -(-w // s) or not 0 <= rows <= r \
+            or r > 65535:
+        raise ValueError(f"crf_spatial_operands: unsupported R={r} rows="
+                         f"{rows} h={h} w={w} s={s} M_pad={m_pad} "
+                         f"msp_dtype={msp_dtype}")
+    TRACER.count("crf.spatial_launches")
+    if q.device.type == "cpu":
+        return spatial_operands_plain(q, norm_bi, sigma, h=h, w=w, s=s,
+                                      m_pad=m_pad, pos_w=pos_w,
+                                      msp_dtype=msp_dtype,
+                                      qsub_dtype=torch.float32)
+    msp = torch.empty((r, n), dtype=msp_dtype, device=q.device)
+    qsub = torch.empty((r, m_pad), dtype=torch.bfloat16, device=q.device)
+    _build.require_cuda("crf_spatial_operands", q=q, norm_bi=norm_bi,
+                        sigma=sigma, msp=msp, qsub=qsub)
+    lib = _build.library("crf_spatial")
+    rc = lib.crf_spatial_operands(
+        q.data_ptr(), norm_bi.data_ptr(), sigma.data_ptr(), msp.data_ptr(),
+        qsub.data_ptr(), r, rows, h, w, s, m_pad, pos_w,
+        int(msp_dtype == torch.float32), _build.stream_ptr(q))
+    _build.check(lib, rc, "crf_spatial_operands")
+    _build.LAUNCHES["crf_spatial_operands"] += 1
+    return msp, qsub
+
+
+def _materialised_degree(kt: torch.Tensor) -> torch.Tensor:
+    """[1, N] bilateral degree of K5's uint8 K^T: the all-ones anchor row
+    times K^T is the column sum of the stored codes (integers, exact in
+    f32), then the 1/255 scale."""
+    return kt.sum(dim=0, dtype=torch.float32)[None] * (1.0 / KT_QUANT_SCALE)
+
+
+def first_state_plain(logits: torch.Tensor, kt: torch.Tensor, r_rows: int,
+                      nb_scale: float):
+    """Plain version of ``crf_first_state``."""
+    v, c = logits.shape[:2]
+    vc = v * c
+    q0 = torch.softmax(logits.float(), dim=1).reshape(vc, -1)
+    first = torch.zeros((2, r_rows, q0.shape[1]), dtype=torch.bfloat16,
+                        device=logits.device)
+    first[0, :vc] = q0
+    first[1, :vc] = torch.log(torch.clamp(q0, _UNARY_CLIP, 1.0))
+    norm_bi = torch.rsqrt(torch.clamp(_materialised_degree(kt), min=1e-20))
+    return first, torch.cat([norm_bi, nb_scale * norm_bi])
+
+
+def crf_first_state(logits: torch.Tensor, kt: torch.Tensor, r_rows: int,
+                    nb_scale: float):
+    """The fused loop's set-up -> (first [2, R, N] bf16, norms [2, N] f32).
+    first[0] is the first state, softmax(logits) over C per variant (f32,
+    as ``torch.softmax(logits.float(), 1)``), first[1] its minus-unary
+    log(clip(state, 1e-5, 1)), each rounded once, rows >= V*C 0; norms[0]
+    is norm_bi = rsqrt(max(deg, 1e-20)) with deg K^T's column sums / 255,
+    norms[1] is nb = ``nb_scale`` * norm_bi. logits [V, C, ...] bf16 or
+    f32, kt [M_pad, N] uint8 from K5. On a CUDA tensor one launch of
+    ``csrc/crf_spatial.cu``; on a CPU tensor the plain version."""
+    v, c = logits.shape[:2]
+    n = logits[0, 0].numel()
+    if logits.dtype not in (torch.bfloat16, torch.float32) \
+            or not logits.is_contiguous() or not v * c <= r_rows \
+            or kt.dtype != torch.uint8 or kt.ndim != 2 or kt.shape[1] != n \
+            or not kt.is_contiguous():
+        raise ValueError(f"crf_first_state: logits {logits.dtype} "
+                         f"{tuple(logits.shape)}, kt {kt.dtype} "
+                         f"{tuple(kt.shape)} (contiguous bf16 or f32 logits, "
+                         f"uint8 [M_pad, N], V*C <= R = {r_rows})")
+    if logits.device.type == "cpu":
+        return first_state_plain(logits, kt, r_rows, nb_scale)
+    first = torch.empty((2, r_rows, n), dtype=torch.bfloat16,
+                        device=logits.device)
+    norms = torch.empty((2, n), dtype=torch.float32, device=logits.device)
+    _build.require_cuda("crf_first_state", logits=logits, kt=kt,
+                        first=first, norms=norms)
+    lib = _build.library("crf_spatial")
+    rc = lib.crf_first_state(
+        logits.data_ptr(), kt.data_ptr(), first.data_ptr(), norms.data_ptr(),
+        v, c, r_rows, n, kt.shape[0], nb_scale,
+        int(logits.dtype == torch.float32), _build.stream_ptr(logits))
+    _build.check(lib, rc, "crf_first_state")
+    _build.LAUNCHES["crf_first_state"] += 1
+    return first, norms
 
 
 def spatial_gaussian_apply(q: torch.Tensor, sigma) -> torch.Tensor:
@@ -171,9 +319,6 @@ def mean_field_crf_variants(
     hs, ws = -(-h // s), -(-w // s)
     dev = logits.device
 
-    q0 = torch.softmax(logits.float(), dim=1)
-    u_flat = -torch.log(torch.clamp(q0, _UNARY_CLIP, 1.0)).reshape(v * c, n)
-
     scale_xy = _pair(xy_scale, dev)  # (sx, sy)
     pos_xy_std = cfg.pos_xy_std * scale_xy.flip(0)  # (sigma_y, sigma_x)
     feats = bilateral_features(image_rgb, cfg.bi_xy_std * scale_xy,
@@ -195,16 +340,11 @@ def mean_field_crf_variants(
         m_pad = kt.shape[0]
 
         def take_j_pad(q_cn):  # [..., N] -> [..., M_pad], zero pad columns
-            qs = take_j_cols(q_cn)
-            return torch.nn.functional.pad(qs, (0, m_pad - qs.shape[-1]))
+            return _take_j_pad(q_cn, h, w, s, m_pad)
 
-        # The all-ones anchor row times K^T is the column sum of the stored
-        # codes (integers, exact in f32), then the 1/255 scale.
-        deg_bi = kt.sum(dim=0, dtype=torch.float32)[None] \
-            * (1.0 / KT_QUANT_SCALE)
         if fused:
-            return _fused_loop(q0, u_flat, kt, take_j_pad, deg_bi, pos_xy_std,
-                               cfg, h, w)
+            return _fused_loop(logits, kt, pos_xy_std, cfg, h, w, s)
+        deg_bi = _materialised_degree(kt)
         # Unfused loop on the materialised kernel: v^T [C', M] @ K^T with
         # bf16 operands on the card (f32 on the CPU, crf.py:279) and f32
         # sums, descaled by 1/255. The codes are integers, exact in bf16
@@ -276,6 +416,8 @@ def mean_field_crf_variants(
     TRACER.count("crf.rows", 2 * cfg.num_iters * v * c)
     TRACER.count("crf.rows_run", 2 * cfg.num_iters * rows_run)
 
+    q0 = torch.softmax(logits.float(), dim=1)
+    u_flat = -torch.log(torch.clamp(q0, _UNARY_CLIP, 1.0)).reshape(v * c, n)
     q = q0.reshape(v * c, n)
     for _ in range(cfg.num_iters):
         m_bi = _normalised_apply(bi_msg, q, norm_bi)
@@ -296,42 +438,26 @@ def _upload(index: np.ndarray, device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
-def _fused_loop(q0, u_flat, kt, take_j_pad, deg_bi, pos_xy_std,
-                cfg: CRFConfig, h: int, w: int) -> torch.Tensor:
-    """The default branch's iterations: one K6 launch each over a bf16
-    state of R = v*c rows rounded up to 16 (pad rows exactly 0), with the
-    spatial normaliser folded into the band matrices (the exact rank-1
-    fold, ``crf.py:505-522``; valid because the fused branch keeps the
-    self term)."""
-    v, c = q0.shape[:2]
-    n = h * w
-    # bf16 products on the card; f32 on the CPU, as crf.py:279.
-    mm_dtype = torch.float32 if q0.device.type == "cpu" else torch.bfloat16
-    state_dtype = torch.bfloat16
-    norm_bi = torch.rsqrt(torch.clamp(deg_bi, min=1e-20))  # [1, N]
-
-    kh, kw = spatial_band_matrices(h, w, pos_xy_std)
-    nh = torch.rsqrt(torch.clamp(kh.sum(1), min=1e-20))
-    nw = torch.rsqrt(torch.clamp(kw.sum(1), min=1e-20))
-    khp = nh[:, None] * kh * nh[None, :]
-    kwp = nw[:, None] * kw * nw[None, :]
-
-    r_rows = -(-(v * c) // 16) * 16
-    pad_r = r_rows - v * c
-    u_neg = torch.nn.functional.pad(-u_flat, (0, 0, 0, pad_r)) \
-        .to(state_dtype)
-    # The kernel multiplies raw uint8 codes, so the 1/255 rides in nb.
-    nb = (cfg.bi_w * (1.0 / KT_QUANT_SCALE) * norm_bi).contiguous()
-    norm_j = take_j_pad(norm_bi)  # [1, M_pad]
-
-    q = torch.nn.functional.pad(q0.reshape(v * c, n), (0, 0, 0, pad_r)) \
-        .to(state_dtype)
+def _fused_loop(logits, kt, pos_xy_std, cfg: CRFConfig, h: int, w: int,
+                s: int) -> torch.Tensor:
+    """The default branch's iterations over a bf16 state of R = v*c rows
+    rounded up to 16 (pad rows exactly 0), made with the minus-unary and
+    the bilateral normalisers by ``crf_first_state``; two launches an
+    iteration: ``crf_spatial_operands`` makes K6's spatial message and
+    strided operand from the state, then K6, which returns a new state
+    tensor each iteration."""
+    v, c = logits.shape[:2]
+    vc = v * c
+    # K6 multiplies raw uint8 codes, so the 1/255 rides in nb.
+    (q, u_neg), norms = crf_first_state(
+        logits.contiguous(), kt, -(-vc // 16) * 16,
+        cfg.bi_w * (1.0 / KT_QUANT_SCALE))
+    norm_bi, nb = norms[0:1], norms[1:2]  # [1, N] each
+    m_pad = kt.shape[0]
     for _ in range(cfg.num_iters):
-        msp = cfg.pos_w * _apply_separable(
-            khp, kwp, q.reshape(r_rows, h, w)).reshape(r_rows, n)
-        qsub = take_j_pad(q) * norm_j  # bf16 * f32 -> f32
-        q = crf_fused_iteration(
-            qsub.to(mm_dtype).contiguous(), kt, u_neg,
-            msp.to(state_dtype), nb, v=v, c=c)
-    labels = torch.argmax(q[:v * c].reshape(v, c, n), dim=1)
+        msp, qsub = crf_spatial_operands(q, norm_bi, pos_xy_std, h=h, w=w,
+                                         s=s, m_pad=m_pad, rows=vc,
+                                         pos_w=cfg.pos_w)
+        q = crf_fused_iteration(qsub, kt, u_neg, msp, nb, v=v, c=c)
+    labels = torch.argmax(q[:vc].reshape(v, c, h * w), dim=1)
     return labels.reshape(v, h, w)

@@ -546,7 +546,8 @@ def test_crf_rows_counters():
     """``crf.rows`` and ``crf.rows_run`` sum the state rows and the rows
     run over the unfused loop's messages (two an iteration) while the
     tracer is on: 58 and 2 x 5 with a live background and 3 live classes;
-    nothing while it is off, nothing from the fused branch."""
+    nothing while it is off; from the fused branch only its own
+    ``crf.spatial_launches``, one an iteration."""
     from pnp_ovss_tpu_torch.utils.tracing import TRACER
 
     valid = np.asarray(_MASKS["classes_dead"])
@@ -571,4 +572,4 @@ def test_crf_rows_counters():
         TRACER.disable()
     assert counted == {"crf.rows": messages * 58,
                        "crf.rows_run": messages * 2 * 5}
-    assert fused == {}
+    assert fused == {"crf.spatial_launches": CRFConfig().num_iters}

@@ -530,6 +530,268 @@ def test_kernel_matmul_empty_inputs(cuda):
     assert _build.LAUNCHES["gaussian_kernel_matmul"] == before
 
 
+def _spatial_state(gen, r, rows, h, w, s=4, sigma=None):
+    """A bf16 state of ``rows`` live rows of probabilities and R - rows
+    pad rows of ones (the kernel must not read them), norm_bi in K5's
+    range, sigma for a 500 x 375 ground truth at this bucket (the runner's
+    scale) unless given, and M_pad as K5 pads it."""
+    n = h * w
+    q = torch.ones((r, n), device=gen.device)
+    q[:rows] = torch.rand((rows, n), generator=gen, device=gen.device)
+    norm_bi = torch.rand((1, n), generator=gen, device=gen.device) * 0.25 \
+        + 0.05
+    if sigma is None:
+        sigma = (3.0 * h / 375, 3.0 * w / 500)
+    m_pad = -(-(-(-h // s) * -(-w // s)) // 128) * 128
+    return (q.to(torch.bfloat16), norm_bi,
+            torch.tensor(sigma, device=gen.device), m_pad)
+
+
+@pytest.mark.parametrize("r,rows,h,w,sigma", [
+    (64, 58, 192, 192, None),  # the main path: V = 2, C = 29, bucket 192
+    (16, 10, 192, 192, None),
+    (64, 58, 96, 256, None),  # non-square; two x-tiles, one with a halo
+    (16, 5, 32, 100, None),  # w % 16 != 0: partial runs, scalar stores
+    (32, 29, 64, 64, None),  # bucket 64, the narrow runs' shape
+    (16, 6, 128, 96, (5.0, 3.0)),  # bands past 32 taps: the generic loops
+    (16, 6, 40, 320, (0.3, 40.0)),  # one tap down h; w's band > one chunk
+])
+def test_spatial_operands_kernel_matches_plain(cuda, r, rows, h, w, sigma):
+    """qsub bit-equal to the plain product rounded once; msp before its
+    rounding within 1e-5 relative L2 of the plain f32 product, and after
+    it within one bf16 ulp (msp >= 0, so the bit patterns are ordered);
+    pad rows 0 without reading the state there."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, norm_bi, sig, m_pad = _spatial_state(gen, r, rows, h, w, sigma=sigma)
+    kw = dict(h=h, w=w, s=4, m_pad=m_pad, pos_w=7.0)
+    _build.reset_launch_counts()
+    msp, qsub = crf.crf_spatial_operands(q, norm_bi, sig, rows=rows, **kw)
+    msp32, qsub2 = crf.crf_spatial_operands(q, norm_bi, sig, rows=rows,
+                                            msp_dtype=torch.float32, **kw)
+    assert _build.LAUNCHES["crf_spatial_operands"] == 2
+    want16, want_qsub = crf.spatial_operands_plain(q, norm_bi, sig, **kw)
+    want32, _ = crf.spatial_operands_plain(q, norm_bi, sig,
+                                           msp_dtype=torch.float32, **kw)
+    live = slice(0, rows)
+    assert torch.equal(qsub[live], want_qsub[live])
+    assert torch.equal(qsub, qsub2)
+    rel = ((msp32[live] - want32[live]).norm()
+           / want32[live].norm()).item()
+    print(f"R={r} h={h} w={w} sigma={sigma}: msp f32 rel L2 {rel:.3g}")
+    assert rel <= 1e-5
+    bits = (msp[live].view(torch.int16).int()
+            - want16[live].view(torch.int16).int()).abs()
+    assert bits.max().item() <= 1
+    assert not msp[rows:].any() and not msp32[rows:].any()
+    assert not qsub[rows:].any()
+
+
+@pytest.mark.parametrize("v,c,r,m,n,dtype", [
+    (2, 29, 64, 2304, 36864, torch.bfloat16),  # the main path's
+    (1, 5, 16, 128, 1000, torch.bfloat16),  # ragged pixels: byte loads
+    (2, 8, 16, 256, 4096, torch.float32),  # no pad rows
+])
+def test_first_state_kernel_matches_plain(cuda, v, c, r, m, n, dtype):
+    """The fused loop's first state and minus-unary from the logits
+    (slots of the runner's disabled value included) against the plain
+    softmax, clamp and log, each within one bf16 ulp (the f32 exp and sum
+    may differ in their last bits), pad rows 0; norm_bi and nb from
+    K^T's column sums within 1e-6 relative (the sums are exact, rsqrt may
+    differ in its last bit)."""
+    from pnp_ovss_tpu_torch.pipeline.runner import _DISABLED
+
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    logits = _randn(gen, v, c, n) * 3
+    logits[:, c // 2 + 1:, : n // 2] = _DISABLED
+    logits = logits.to(dtype)
+    kt = torch.randint(0, 256, (m, n), generator=gen, device=cuda,
+                       dtype=torch.uint8)
+    _build.reset_launch_counts()
+    got, norms = crf.crf_first_state(logits, kt, r, 10.0 / 255)
+    assert _build.LAUNCHES["crf_first_state"] == 1
+    want, want_norms = crf.first_state_plain(logits, kt, r, 10.0 / 255)
+    for i, name in enumerate(("state", "log state")):
+        bits = (got[i].view(torch.int16).int()
+                - want[i].view(torch.int16).int()).abs()
+        print(f"{name}: {(bits > 0).sum().item()} of {bits.numel()} "
+              "differ by one bf16 ulp")
+        assert bits.max().item() <= 1
+    assert not got[:, v * c:].any()
+    rel = ((norms - want_norms).abs() / want_norms).max().item()
+    print(f"norm_bi, nb: max relative difference {rel:.3g}")
+    assert rel <= 1e-6
+
+
+def test_spatial_operands_kernel_refuses_mixed_devices(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q, norm_bi, sig, m_pad = _spatial_state(gen, 16, 10, 32, 32)
+    with pytest.raises(ValueError):
+        crf.crf_spatial_operands(q, norm_bi.cpu(), sig, h=32, w=32, s=4,
+                                 m_pad=m_pad, rows=10, pos_w=7.0)
+
+
+def _glue_fused_loop(logits, kt, pos_xy_std, cfg, h, w, s):
+    """The fused loop as the port ran it before ``crf_first_state`` and
+    ``crf_spatial_operands``: the unary, K^T's column sums, the band
+    matrices built per image, the f32 separable product (cuBLAS), the
+    strided take and the casts in PyTorch, then K6. Returns its states."""
+    q0 = torch.softmax(logits.float(), dim=1)
+    deg_bi = kt.sum(dim=0, dtype=torch.float32)[None] / 255.0
+    v, c = q0.shape[:2]
+    n, vc = h * w, v * c
+    m_pad = kt.shape[0]
+    norm_bi = torch.rsqrt(torch.clamp(deg_bi, min=1e-20))
+    kh, kw = crf.spatial_band_matrices(h, w, pos_xy_std)
+    nh = torch.rsqrt(torch.clamp(kh.sum(1), min=1e-20))
+    nw = torch.rsqrt(torch.clamp(kw.sum(1), min=1e-20))
+    khp = nh[:, None] * kh * nh[None, :]
+    kwp = nw[:, None] * kw * nw[None, :]
+    r_rows = -(-vc // 16) * 16
+    pad = (0, 0, 0, r_rows - vc)
+    u_neg = torch.nn.functional.pad(
+        torch.log(torch.clamp(q0, 1e-5, 1.0)).reshape(vc, n), pad) \
+        .to(torch.bfloat16)
+    nb = (cfg.bi_w / bilateral.KT_QUANT_SCALE * norm_bi).contiguous()
+
+    def take_j_pad(x):
+        xs = x.unflatten(-1, (h, w))[..., ::s, ::s].flatten(-2)
+        return torch.nn.functional.pad(xs, (0, m_pad - xs.shape[-1]))
+
+    norm_j = take_j_pad(norm_bi)
+    q = torch.nn.functional.pad(q0.reshape(vc, n), pad).to(torch.bfloat16)
+    states = []
+    for _ in range(cfg.num_iters):
+        msp = cfg.pos_w * crf._apply_separable(
+            khp, kwp, q.reshape(r_rows, h, w)).reshape(r_rows, n)
+        qsub = take_j_pad(q) * norm_j
+        q = bilateral.crf_fused_iteration(
+            qsub.to(torch.bfloat16).contiguous(), kt, u_neg,
+            msp.to(torch.bfloat16), nb, v=v, c=c)
+        states.append(q)
+    return states
+
+
+def _cell_crf_inputs(cuda, seed):
+    """One image's CRF inputs at the 336 px cell's shapes: two variants of
+    29 slots (background and 4 live classes, 24 disabled at the runner's
+    value), bf16 as the runner passes them, bucket 192, a 500 x 375 ground
+    truth."""
+    from pnp_ovss_tpu_torch.pipeline.runner import _DISABLED
+
+    logits, image = _crf_scene(seed, 192, 29, 12)
+    logits[:, 5:] = _DISABLED
+    xy = torch.tensor([192 / 500, 192 / 375], device=cuda)
+    return logits.to(cuda).to(torch.bfloat16), image.to(cuda), xy
+
+
+def test_fused_crf_on_card_matches_the_pytorch_glue(cuda, monkeypatch):
+    """The whole fused CRF (K5 and ``crf_first_state``, then
+    ``crf_spatial_operands`` and K6 ten times) against the same loop with
+    the first state and the operands made in PyTorch, at
+    the 336 px cell's shapes: every iteration's state within 2^-8, labels
+    equal on >= 99.9% of the pixels; each returned state a distinct tensor
+    that later iterations leave unchanged."""
+    logits, image, xy = _cell_crf_inputs(cuda, 11)
+    args, states, copies = {}, [], []
+    real_loop, real_k6 = crf._fused_loop, crf.crf_fused_iteration
+
+    def loop_spy(*a):
+        args["a"] = a
+        return real_loop(*a)
+
+    def k6_spy(*a, **kw):
+        out = real_k6(*a, **kw)
+        states.append(out)
+        copies.append(out.clone())
+        return out
+
+    monkeypatch.setattr(crf, "_fused_loop", loop_spy)
+    monkeypatch.setattr(crf, "crf_fused_iteration", k6_spy)
+    _build.reset_launch_counts()
+    labels = crf.mean_field_crf_variants(logits, image, CRFConfig(),
+                                         xy_scale=xy)
+    assert _build.LAUNCHES["crf_first_state"] == 1
+    assert _build.LAUNCHES["crf_spatial_operands"] == 10
+    assert _build.LAUNCHES["crf_fused_iteration"] == 10
+    glue = _glue_fused_loop(*args["a"])
+    assert len(states) == len(glue) == 10
+    for i, (got, want) in enumerate(zip(states, glue)):
+        err = (got.float() - want.float()).abs().max().item()
+        print(f"iteration {i + 1}: max abs diff {err:.3g}")
+        assert err <= 2 ** -8, (i, err)
+    want_labels = torch.argmax(glue[-1][:58].reshape(2, 29, -1), 1) \
+        .reshape(labels.shape)
+    agree = (labels == want_labels).float().mean().item()
+    print(f"labels agree on {agree:.6f} of the pixels")
+    assert agree >= 0.999
+    assert len({st.data_ptr() for st in states}) == 10
+    assert all(torch.equal(st, cp) for st, cp in zip(states, copies))
+
+
+def test_fused_crf_launches_at_the_cell_shape(cuda):
+    """One image's fused CRF at the 336 px cell's shapes (the runner's
+    call, the image's cast included) launches at most 70 device
+    operations (kernels, copies, fills) by the profiler's count, two of
+    them an iteration; ``crf.spatial_launches`` counts 10. It runs in a
+    child process, so that its profiler session cannot touch another
+    test's."""
+    code = (
+        "import numpy as np, torch\n"
+        "from pnp_ovss_tpu_torch.config import CRFConfig\n"
+        "from pnp_ovss_tpu_torch.ops import crf\n"
+        "from pnp_ovss_tpu_torch.utils.tracing import TRACER\n"
+        "g = torch.Generator(device='cuda').manual_seed(12)\n"
+        "logits = torch.randn((2, 29, 192, 192), generator=g,"
+        " device='cuda')\n"
+        "logits[:, 5:] = -1e30\n"
+        "logits = logits.to(torch.bfloat16)\n"
+        "image = torch.randint(0, 256, (192, 192, 3), generator=g,"
+        " device='cuda', dtype=torch.uint8)\n"
+        "xy = torch.tensor([192 / 500, 192 / 375], device='cuda')\n"
+        "valid = np.array([True] * 5 + [False] * 24)\n"
+        "def run():\n"
+        "    crf.mean_field_crf_variants(logits, image.float(), CRFConfig(),"
+        " xy_scale=xy, channel_valid=valid)\n"
+        "run()\n"
+        "torch.cuda.synchronize()\n"
+        "acts = [torch.profiler.ProfilerActivity.CPU,"
+        " torch.profiler.ProfilerActivity.CUDA]\n"
+        "TRACER.enable()\n"
+        "with torch.profiler.profile(activities=acts) as prof:\n"
+        "    run()\n"
+        "    torch.cuda.synchronize()\n"
+        "TRACER.disable()\n"
+        "ops = [e for e in prof.events()"
+        " if e.device_type == torch.autograd.DeviceType.CUDA]\n"
+        "print('device operations:', len(ops))\n"
+        "print('counters:', TRACER.drain()['counters'])\n")
+    root = Path(__file__).resolve().parent.parent
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600, cwd=root)
+    print(res.stdout)
+    lines = dict(line.split(": ", 1) for line in res.stdout.splitlines()
+                 if ": " in line)
+    assert "device operations" in lines, res.stdout + res.stderr
+    assert 20 <= int(lines["device operations"]) <= 70
+    assert lines["counters"] == "{'crf.spatial_launches': 10}"
+
+
+def test_fused_crf_makes_no_stream_synchronisation(cuda):
+    """At the 336 px cell's shapes, behind queued work, a fused CRF call
+    waits for nothing (sync debug mode "error")."""
+    logits, image, xy = _cell_crf_inputs(cuda, 13)
+    valid = np.array([True] * 5 + [False] * 24)
+    crf.mean_field_crf_variants(logits, image, CRFConfig(), xy_scale=xy,
+                                channel_valid=valid)
+    torch.cuda._sleep(100_000_000)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        crf.mean_field_crf_variants(logits, image, CRFConfig(), xy_scale=xy,
+                                    channel_valid=valid)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
 def _crf_scene(seed, size, c, noise):
     """A textured image and two variants of noisy logits over ``c``
     channels, the first two favoured in one half each."""
@@ -1466,5 +1728,27 @@ def test_submit_batch_never_waits_for_the_card(cuda, subsample):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     second = pending.result()
+    np.testing.assert_array_equal(second.labels_agg, first.labels_agg)
+    np.testing.assert_array_equal(second.labels_r0, first.labels_r0)
+
+
+def test_336px_submit_never_waits_for_the_card(cuda):
+    """A full-width 336 px batch (35 images, strided s = 4 CRF through
+    ``crf_spatial_operands`` and K6) submits without one stream
+    synchronisation after a warm-up batch, and its labels equal the
+    warm-up's on the same inputs."""
+    import chip_smoke
+
+    _, runner, (images, cap, rgb, gt) = chip_smoke.pipeline_setup()
+    first = runner.submit_batch(images, cap, rgb, gt_sizes=gt).result()
+    _build.reset_launch_counts()
+    torch.cuda._sleep(100_000_000)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = runner.submit_batch(images, cap, rgb, gt_sizes=gt)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    second = pending.result()
+    assert _build.LAUNCHES["crf_spatial_operands"] == 35 * 10
     np.testing.assert_array_equal(second.labels_agg, first.labels_agg)
     np.testing.assert_array_equal(second.labels_r0, first.labels_r0)

@@ -110,7 +110,8 @@ def test_traced_batch_gives_the_span_tree_and_the_same_outputs(results):
     ``drop.round`` a round, one ``post.crf`` over the batch), one batch id
     on the submit's spans and its result's, the counters (the exact CRF's
     rows: 2 x 5 slots an image, of which the images with 2, 1, 3 and 1
-    classes run 4, 3, 5 and 3 a variant, two messages an iteration);
+    classes run 4, 3, 5 and 3 a variant, two messages an iteration; the
+    strided CRF's fused loop one ``crf.spatial_launches`` an iteration);
     labels and maps bit-equal to the untraced run's."""
     _, prun, _, untraced, (images, cap, rgb, gt) = results
     TRACER.drain()
@@ -145,6 +146,9 @@ def test_traced_batch_gives_the_span_tree_and_the_same_outputs(results):
         messages = 2 * prun.cfg.postprocess.crf.num_iters
         counters.update({"crf.rows": messages * 2 * 5 * B,
                          "crf.rows_run": messages * 2 * (4 + 3 + 5 + 3)})
+    else:
+        counters["crf.spatial_launches"] = \
+            prun.cfg.postprocess.crf.num_iters * B
     assert data["counters"] == counters
     for name in ("labels_r0", "labels_agg", "maps_r0", "maps_agg"):
         np.testing.assert_array_equal(getattr(got, name),
