@@ -50,8 +50,9 @@ Phases, each of which exits non-zero on failure:
    (336 px, batch 35, fused ViT, strided s=4 CRF), bench.py's second leg
    (768 px, batch 12, fused ViT through K4), the unfused ViT at 336 px,
    and the reference default with the exact CRF (s=1, K8). Each checks
-   the launch count of every kernel over its timed batches, labels in
-   range and maps finite, and reports img/s. Then the reference default
+   the launch count of every kernel over three batches after a warm-up,
+   labels in range and maps finite; their speed is ``port_bench``'s to
+   measure (``python3 port_bench/run.py``). Then the reference default
    sequence-parallel over two ranks on the card (K1, K7, K3), against the
    unsharded run's labels, and one 768 px sequence-parallel encode
    against the unsharded encode;
@@ -110,9 +111,10 @@ Phases, each of which exits non-zero on failure:
    ``entry.dryrun_multichip(4)``. Phase 3 also holds K2' (a TP rank's
    8 heads, strided views) against its plain version and K2's heads.
 
-The last four lines of output are the runs' img/s as JSON, one JSON
-object with every kernel's numbers, the card's name and power limit, and
-``{"ok": true, "device": {...}}``.
+The last four lines of output are one JSON object with the CLI and
+parallel runs' rows, one with every kernel's numbers (each bound is
+``port_bench/counting.py``'s roofline), the card's name and power limit,
+and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -124,13 +126,7 @@ import subprocess
 import sys
 import time
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-BF16_FLOPS = 989e12  # dense tensor-core bf16
-F32_FLOPS = 67e12  # CUDA-core f32
-# ex2 on the multi-function units: 16 a clock per SM against the f32
-# units' 128 FMAs (256 flops), at the clock F32_FLOPS implies.
-EX2_PER_S = F32_FLOPS / 16
-PIPELINE_BATCHES = 3  # timed, double-buffered, after one warm-up batch
+PIPELINE_BATCHES = 3  # launches counted, double-buffered, after a warm-up
 BUCKET = 192  # the CRF bucket of the reference default (bench.py)
 LEG_768 = (768, 12)  # bench.py's second leg: image size, batch
 GT_SIZES = ((500, 375), (375, 500))  # VOC-like (H, W), alternating
@@ -167,15 +163,43 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, ops: float, peak_ops: float, *more):
-    """The least time for ``nbytes`` of memory traffic and ``ops``
-    operations at ``peak_ops``; ``more`` holds (operations, peak) pairs
-    that run on other units at the same time, and the slowest unit sets
-    the operations' time."""
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = max([ops / peak_ops] + [o / p for o, p in more])
-    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
-        "operations"
+def least_ms(nbytes: float, products: float = 0.0,
+             elementwise: float = 0.0) -> tuple:
+    """A launch's least time in ms by ``port_bench/counting.py``'s
+    roofline (each byte read or written once, products at the bf16
+    tensor-core rate, element-wise f32 work counting one operation an
+    exponent), and which of "bytes", "products" or "element-wise" sets
+    it."""
+    from port_bench import counting
+
+    parts = {"bytes": (nbytes, 0.0, 0.0), "products": (0.0, products, 0.0),
+             "element-wise": (0.0, 0.0, elementwise)}
+    by = max(parts, key=lambda k: counting.least_s(*parts[k]))
+    return 1e3 * counting.least_s(nbytes, products, elementwise), by
+
+
+def flash_least_ms(b: int, h: int, sq: int, l: int, d: int,
+                   nbytes: float = None, products: float = 0.0) -> tuple:
+    """``least_ms`` of the flash kernel at b x h heads of sq query rows
+    over l keys of head dim d, by ``counting.flash_least_s``'s counts
+    (equal to it at sq == l): q and the output at sq rows, k and v at l,
+    bf16; QK^T and PV on the tensor cores; one exponent a score.
+    ``nbytes`` replaces the bytes, ``products`` adds tensor-core work
+    (K4's proj)."""
+    scores = float(b) * h * sq * l
+    if nbytes is None:
+        nbytes = 2.0 * b * h * d * (2 * sq + 2 * l)
+    return least_ms(nbytes, 4.0 * scores * d + products, scores)
+
+
+def k8_least_ms(n: int, m: int, c: int) -> tuple:
+    """``least_ms`` of K8 by ``counting.gaussian_matmul_least_s``'s counts
+    (equal to it): f32 features of both sides and bf16 values read, the
+    f32 output written; the distance's cross term and the product with
+    the values on the tensor cores; one exponent a pair."""
+    pairs = float(n) * m
+    return least_ms((n + m) * 5 * 4 + m * c * 2 + n * c * 4,
+                    2.0 * pairs * (5 + c), pairs)
 
 
 # Tolerances of the fused ViT kernels against their plain versions, in
@@ -198,6 +222,15 @@ def with_rate(row: dict, nbytes: float) -> dict:
     """``row`` with the achieved memory rate of its ``ms`` over the
     ``nbytes`` its bound counts (GB/s)."""
     row["gb_per_s"] = nbytes / (row["ms"] * 1e-3) / 1e9
+    return row
+
+
+def with_shapes(lines) -> dict:
+    """The first of ``lines``, one kernel's rows at several shapes, with
+    every row less the kernel's own fields as its ``shapes``."""
+    row = dict(lines[0])
+    row["shapes"] = [{k: v for k, v in r.items() if k not in (
+        "name", "route", "source", "replaces")} for r in lines]
     return row
 
 
@@ -308,7 +341,7 @@ def kernels_vs_plain(cfg):
     torch.cuda.synchronize()
     qh, kh_, vh = (x.view(b, s, h, d).transpose(1, 2) for x in (q, k, v))
     nbytes = qkv.numel() * 2 + b * s * hd * 2
-    bms, by = flash_bound_ms(nbytes, b, h, s, s, d)
+    bms, by = flash_least_ms(b, h, s, s, d)
     rows["flash_mha_flat_qkv"] = with_rate(dict(
         name="flash_mha_flat_qkv", route="cuda",
         source="pnp_ovss_tpu_torch/csrc/flash_attention.cu",
@@ -322,11 +355,8 @@ def kernels_vs_plain(cfg):
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qh, kh_, vh), 20),
         shape=f"336 px BLIP ViT [{b}, {s}, {3 * hd}]"), nbytes)
-    k2 = rows["flash_mha_flat_qkv"]
-    keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "max_abs_err", "gb_per_s")
-    k2["shapes"] = [{key: r[key] for key in keys}
-                    for r in (k2, clip_flash_kernel(gen))]
+    rows["flash_mha_flat_qkv"] = with_shapes(
+        [rows["flash_mha_flat_qkv"], clip_flash_kernel(gen)])
 
     # K2' as tensor parallelism calls it (tp = 2): rank 1's 8 heads, the
     # strided column views [512:1024] of q, k and v in the replicated qkv.
@@ -345,7 +375,7 @@ def kernels_vs_plain(cfg):
     qlh, klh, vlh = (x.view(b, s, hl, d).transpose(1, 2)
                      for x in (ql, kl, vl))
     nbytes = 4 * b * s * w * 2
-    bms, by = flash_bound_ms(nbytes, b, hl, s, s, d)
+    bms, by = flash_least_ms(b, hl, s, s, d)
     rows["flash_mha_flat"] = with_rate(dict(
         name="flash_mha_flat", route="cuda",
         source="pnp_ovss_tpu_torch/csrc/flash_attention.cu",
@@ -387,7 +417,8 @@ def kernels_vs_plain(cfg):
         raise SystemExit("FAIL: gaussian_kernel_materialize pad rows not 0")
     m_pad = kt.shape[0]
     nbytes = m_pad * n + (m + n) * 5 * 4
-    bms, by = bound_ms(nbytes, 17.0 * m * n, F32_FLOPS)
+    # As K8's entries: the distance's cross term a product, one exponent.
+    bms, by = least_ms(nbytes, 2.0 * m * n * 5, 1.0 * m * n)
     rows["gaussian_kernel_materialize"] = with_rate(dict(
         name="gaussian_kernel_materialize", route="cuda",
         source="pnp_ovss_tpu_torch/csrc/crf_materialize.cu",
@@ -411,7 +442,7 @@ def kernels_vs_plain(cfg):
     if out6[vv * c:].any():
         raise SystemExit("FAIL: crf_fused_iteration pad rows not 0")
     nbytes = m_pad * n + r * m_pad * 2 + 3 * r * n * 2 + n * 4
-    bms, by = bound_ms(nbytes, 2.0 * r * m_pad * n, BF16_FLOPS)
+    bms, by = least_ms(nbytes, 2.0 * r * m_pad * n)
     rows["crf_fused_iteration"] = with_rate(dict(
         name="crf_fused_iteration", route="cuda",
         source="pnp_ovss_tpu_torch/csrc/crf_iteration.cu",
@@ -424,12 +455,6 @@ def kernels_vs_plain(cfg):
         bound_ms=bms, bound_by=by, library_ms=None), nbytes)
     rows["crf_spatial_operands"] = spatial_operands_row(cfg, kt, out6)
     rows["crf_first_state"] = first_state_row(cfg, kt, gen)
-    for row in rows.values():
-        for sh in row.get("shapes", [row]):
-            print(f"  {row['name']} {sh.get('shape', '')}: {sh['ms']:.4f} ms "
-                  f"(plain {sh['plain_ms']:.4f}, bound {sh['bound_ms']:.4f}"
-                  f" by {sh.get('bound_by', row['bound_by'])}, library "
-                  f"{sh['library_ms']})", flush=True)
     return rows
 
 
@@ -487,7 +512,7 @@ def spatial_operands_row(cfg, kt, state):
         raise SystemExit("FAIL: crf_spatial_operands pad rows not 0")
     taps = sum(2 * band_taps(sg, hb) - 1 for sg in sigma)
     nbytes = 2 * r * n * 2 + r * m_pad * 2 + n * 4
-    bms, by = bound_ms(nbytes, 2.0 * rows * n * taps, F32_FLOPS)
+    bms, by = least_ms(nbytes, 2.0 * rows * n * taps)
     return with_rate(dict(
         name="crf_spatial_operands", route="cuda",
         source="pnp_ovss_tpu_torch/csrc/crf_spatial.cu",
@@ -498,7 +523,7 @@ def spatial_operands_row(cfg, kt, state):
         plain_ms=time_ms(lambda: crf.spatial_operands_plain(
             state, norm_bi, sig, **kw), 10),
         bound_ms=bms, bound_by=by, library_ms=None,
-        dense_ops_bound_ms=1e3 * 2.0 * rows * 2 * hb ** 3 / F32_FLOPS,
+        dense_ops_bound_ms=least_ms(0.0, 2.0 * rows * 2 * hb ** 3)[0],
         taps=taps, sigma=list(sigma)), nbytes)
 
 
@@ -532,7 +557,7 @@ def first_state_row(cfg, kt, gen):
     if got[:, vv * c:].any():
         raise SystemExit("FAIL: crf_first_state pad rows not 0")
     nbytes = logits.numel() * 2 + kt.numel() + got.numel() * 2 + n * 8
-    bms, by = bound_ms(nbytes, 0.0, F32_FLOPS)
+    bms, by = least_ms(nbytes)
     return with_rate(dict(
         name="crf_first_state", route="cuda",
         source="pnp_ovss_tpu_torch/csrc/crf_spatial.cu",
@@ -584,12 +609,7 @@ def clip_flash_kernel(gen) -> dict:
     torch.cuda.synchronize()
     qh, kh, vh = (x.view(b, s, h, d).transpose(1, 2) for x in (q, k, vv))
     nbytes = qkv.numel() * 2 + b * s * hd * 2
-    bms, by = flash_bound_ms(nbytes, b, h, s, s, d)
-    print(f"  flash_mha_flat_qkv CLIP: bound by bytes "
-          f"{1e3 * nbytes / HBM_BYTES_PER_S:.4f} ms, by products "
-          f"{1e3 * 4.0 * b * h * s * s * d / BF16_FLOPS:.4f} ms, by "
-          f"exponentials {1e3 * b * h * s * s / EX2_PER_S:.4f} ms",
-          flush=True)
+    bms, by = flash_least_ms(b, h, s, s, d)
     return with_rate(dict(
         shape=f"336 px CLIP ViT-L/14 [{b}, {s}, {3 * hd}]", max_abs_err=err,
         ms=time_ms(lambda: flash_attention.flash_mha_flat_qkv(
@@ -665,28 +685,6 @@ def k8_values(m: int, c: int, signed: bool, gen):
                                      device=gen.device), -1).reshape(m, c)
 
 
-def k8_bound_ms(n: int, m: int, c: int):
-    """K8's bound: the bytes of features, values and output against the
-    operations of each unit: 15 f32 operations a pair (the explicit
-    differences' 5 subtractions and 5 FMAs; the negation folds into the
-    ex2's operand and the features are scaled once per call), one ex2 a
-    pair and the bf16 product. Returns (ms, by, bytes)."""
-    nbytes = (n + m) * 5 * 4 + m * c * 4 + n * c * 4
-    ms, by = bound_ms(nbytes, 15.0 * n * m, F32_FLOPS,
-                      (2.0 * n * m * c, BF16_FLOPS), (1.0 * n * m, EX2_PER_S))
-    return ms, by, nbytes
-
-
-def flash_bound_ms(nbytes: float, b: int, h: int, sq: int, l: int, d: int,
-                   more_flops: float = 0.0):
-    """The flash kernel's bound at b x h heads of sq query rows over l
-    keys of head dim d: its bytes against the two bf16 products (with
-    ``more_flops`` of other tensor-core work, K4's proj) and one expf a
-    score on the multi-function units, which run at the same time."""
-    return bound_ms(nbytes, 4.0 * b * h * sq * l * d + more_flops,
-                    BF16_FLOPS, (1.0 * b * h * sq * l, EX2_PER_S))
-
-
 def flash_sass_counts(paths) -> dict:
     """Instruction counts in the built flash libraries' SASS (cuobjdump):
     HGMMA (wgmma), HMMA (mma.sync) and LDGSTS (cp.async)."""
@@ -757,7 +755,8 @@ def kernel_matmul_check(cfg):
               rel, tol)
         del out, ref
         torch.cuda.synchronize()
-        bms, by, nbytes = k8_bound_ms(n, m, c)
+        bms, by = k8_least_ms(n, m, c)
+        nbytes = (n + m) * 5 * 4 + m * c * 4 + n * c * 4  # f32 values
         lines.append(with_rate(dict(
             name="gaussian_kernel_matmul", route="cuda",
             source="pnp_ovss_tpu_torch/csrc/crf_matmul.cu",
@@ -770,16 +769,7 @@ def kernel_matmul_check(cfg):
                 fi, vals, fj), 1, warmup=1),
             bound_ms=bms, bound_by=by, library_ms=None,
             shape=f"{label} N={n} M={m}"), nbytes))
-    for row in lines:
-        print(f"  gaussian_kernel_matmul {row['shape']}: {row['ms']:.4f} ms "
-              f"(closure {row['closure_ms']:.4f}, plain "
-              f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} by "
-              f"{row['bound_by']}, library None)", flush=True)
-    row = dict(lines[0])
-    row["shapes"] = [{k: r[k] for k in (
-        "shape", "ms", "closure_ms", "plain_ms", "bound_ms", "max_abs_err",
-        "gb_per_s")} for r in lines]
-    return row
+    return with_shapes(lines)
 
 
 def bf16_ulp(x: float) -> float:
@@ -835,7 +825,7 @@ def fused_vit_kernels(cfg, cfg768):
         check(name, err, tol)
         return err
 
-    rows, lines = {}, []
+    rows = {}
     for label, c in (("336 px", cfg), ("768 px", cfg768)):
         b, s = c.batch_size, c.model.vit.seq_len
         m = b * s
@@ -873,7 +863,7 @@ def fused_vit_kernels(cfg, cfg768):
                  "ln_matmul.cu", "vit_block_pallas.py:119"),
                 ("ln_mlp_residual", t3, e3, k3_bytes, 4.0 * m * d * f,
                  "ln_mlp_residual.cu", "vit_block_pallas.py:316")):
-            bms, by = bound_ms(nbytes, ops, BF16_FLOPS)
+            bms, by = least_ms(nbytes, ops)
             row = with_rate(dict(name=name, route="cuda",
                        source=f"pnp_ovss_tpu_torch/csrc/{src}",
                        replaces=f"pnp_ovss_tpu/ops/{rep}", max_abs_err=e,
@@ -881,15 +871,10 @@ def fused_vit_kernels(cfg, cfg768):
                        bound_by=by, library_ms=None,
                        unfused_ms=t["unfused_ms"], shape=f"{label} M={m}"),
                             nbytes)
-            lines.append(row)
             if label == "336 px":
                 rows[name] = row
             else:  # the 768 px leg's numbers beside the 336 px row's
-                rows[name]["shapes"] = [
-                    {k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
-                                       "unfused_ms", "max_abs_err",
-                                       "gb_per_s")}
-                    for r in (rows[name], row)]
+                rows[name] = with_shapes([rows[name], row])
         del x
 
     # K4 as the ViT calls it at 768 px: one launch per layer over the
@@ -935,8 +920,8 @@ def fused_vit_kernels(cfg, cfg768):
     print(f"  flash_mha_qkv_proj proj vs x + (F.linear(out, Wp) + bp): "
           f"{ne.sum().item()} of {ne.numel()} values differ", flush=True)
     nbytes = 2 * (qkv.numel() + 2 * x.numel() + wp.numel() + d)
-    bms, by = flash_bound_ms(nbytes, b, h, s, s, hd,
-                             more_flops=2.0 * b * s * d * d)
+    bms, by = flash_least_ms(b, h, s, s, hd, nbytes=nbytes,
+                             products=2.0 * b * s * d * d)
     # The library's route to the same function (timed, used nowhere):
     # SDPA on the heads, then cuBLAS's proj product with the bias, and
     # the residual.
@@ -956,16 +941,6 @@ def fused_vit_kernels(cfg, cfg768):
                        qkv, num_heads=h), 10),
                proj_ms=time_ms(k4_proj, 10), shape=f"768 px B={b} S={s}")
     rows["flash_mha_qkv_proj"] = with_rate(row, nbytes)
-    lines.append(row)
-    for row in lines:
-        parts = (f", attention {row['attention_ms']:.4f} + proj "
-                 f"{row['proj_ms']:.4f}" if "proj_ms" in row else "")
-        lib = (f", SDPA + cuBLAS proj {row['library_ms']:.4f}"
-               if row["library_ms"] is not None else "")
-        print(f"  {row['name']} {row['shape']}: {row['ms']:.4f} ms (plain "
-              f"{row['plain_ms']:.4f}, unfused route "
-              f"{row['unfused_ms']:.4f}{parts}{lib}, bound "
-              f"{row['bound_ms']:.4f} by {row['bound_by']})", flush=True)
     return rows
 
 
@@ -1031,7 +1006,7 @@ def xlen_and_bhsd_kernels(cfg, cfg768):
         kh, vh = (t[:, :s].unflatten(-1, (h, d)).transpose(1, 2)
                   for t in (k, v))
         nbytes = 2 * (2 * b * chunk * hd + 2 * b * s * hd)
-        bms, by = flash_bound_ms(nbytes, b, h, chunk, s, d)
+        bms, by = flash_least_ms(b, h, chunk, s, d)
         k7.append(with_rate(dict(
             name="flash_mha_flat_xlen", route="cuda",
             source="pnp_ovss_tpu_torch/csrc/flash_attention.cu",
@@ -1066,7 +1041,7 @@ def xlen_and_bhsd_kernels(cfg, cfg768):
         del out, ref
         torch.cuda.synchronize()
         nbytes = 4 * 2 * b * hh * s * dd
-        bms, by = flash_bound_ms(nbytes, b, hh, s, s, dd)
+        bms, by = flash_least_ms(b, hh, s, s, dd)
         k9.append(with_rate(dict(
             name="flash_mha", route="cuda",
             source="pnp_ovss_tpu_torch/csrc/flash_attention.cu",
@@ -1080,20 +1055,7 @@ def xlen_and_bhsd_kernels(cfg, cfg768):
                 q, k, v), 20),
             shape=f"{label} [{b}, {hh}, {s}, {dd}]"), nbytes))
         del qkv, q, k, v
-    rows = {}
-    for lines in (k7, k9):
-        for row in lines:
-            print(f"  {row['name']} {row['shape']}: {row['ms']:.4f} ms (plain "
-                  f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} by "
-                  f"{row['bound_by']}, SDPA {row['library_ms']:.4f})",
-                  flush=True)
-        row = dict(lines[0])
-        row["shapes"] = [{k: r[k] for k in ("shape", "ms", "plain_ms",
-                                            "bound_ms", "library_ms",
-                                            "max_abs_err", "gb_per_s")}
-                         for r in lines]
-        rows[row["name"]] = row
-    return rows
+    return {lines[0]["name"]: with_shapes(lines) for lines in (k7, k9)}
 
 
 def synthetic_batch(cfg, batch: int, bucket: int, seed: int = 0):
@@ -1441,21 +1403,6 @@ def pipeline_setup(seed: int = 0, *, image_size: int = 336,
     return cfg, runner, synthetic_batch(cfg, cfg.batch_size, BUCKET, seed)
 
 
-def timed_batches(runner, inputs, n_batches: int):
-    """``n_batches`` double-buffered batches (the next is submitted before
-    the last one's result is read). Returns (last result, wall seconds)."""
-    images, cap, rgb, gt = inputs
-    t0 = time.perf_counter()
-    pending = None
-    for _ in range(n_batches):
-        nxt = runner.submit_batch(images, cap, rgb, gt_sizes=gt)
-        if pending is not None:
-            pending.result()
-        pending = nxt
-    last = pending.result()
-    return last, time.perf_counter() - t0
-
-
 # Phase 5's full-width runs: (name, image size, fused ViT, the ViT
 # kernels each layer of each drop round launches, postprocess settings
 # beside the default strided s=4 CRF).
@@ -1502,10 +1449,11 @@ def expected_launches(cfg, vit_kernels, bucket: int = BUCKET) -> dict:
 
 def run_pipeline(cfg, runner, inputs, per_batch: dict,
                  n_batches: int = PIPELINE_BATCHES):
-    """Phase 5, one run: a checked warm-up batch, then ``n_batches`` timed
-    batches with the launch counts set to 0 just before and read just
-    after. Returns (launch counts of the timed batches, img/s, the
-    warm-up batch's ``summary``)."""
+    """Phase 5, one run: a checked warm-up batch, then ``n_batches``
+    double-buffered batches with the launch counts set to 0 just before
+    and read just after. Returns (launch counts of those batches, the warm-up batch's
+    ``summary``). The speed of these runs is ``port_bench``'s to
+    measure."""
     import numpy as np
     import torch
 
@@ -1513,9 +1461,7 @@ def run_pipeline(cfg, runner, inputs, per_batch: dict,
 
     images, cap, rgb, gt = inputs
     batch, k = cfg.batch_size, cfg.max_classes
-    t0 = time.perf_counter()
     res = runner.run_batch(images, cap, rgb, return_maps=True, gt_sizes=gt)
-    print(f"  warm-up batch: {time.perf_counter() - t0:.2f} s", flush=True)
     if res.labels_agg.shape != (batch, BUCKET, BUCKET):
         raise SystemExit(f"FAIL: labels shape {res.labels_agg.shape}")
     for lab in (res.labels_r0, res.labels_agg):
@@ -1532,7 +1478,13 @@ def run_pipeline(cfg, runner, inputs, per_batch: dict,
 
     torch.cuda.synchronize()
     _build.reset_launch_counts()
-    last, dt = timed_batches(runner, inputs, n_batches)
+    pending = None  # the next batch is submitted before this one's result
+    for _ in range(n_batches):
+        nxt = runner.submit_batch(images, cap, rgb, gt_sizes=gt)
+        if pending is not None:
+            pending.result()
+        pending = nxt
+    last = pending.result()
     counts = dict(_build.LAUNCHES)
     if last.labels_agg.max() > k:
         raise SystemExit("FAIL: labels outside [0, max_classes]")
@@ -1543,7 +1495,7 @@ def run_pipeline(cfg, runner, inputs, per_batch: dict,
                              f"{want * n_batches}")
     print(f"  launches over {n_batches} batches: {counts} "
           f"(per batch {per_batch})", flush=True)
-    return counts, batch * n_batches / dt, summary(res)
+    return counts, summary(res)
 
 
 def capture_round0(runner, on: bool = True) -> tuple:
@@ -1589,12 +1541,11 @@ def sp_narrow(mesh) -> dict:
 def sp_full(mesh) -> dict:
     """Phase 5 on one rank: the reference default split over the mesh's
     model axis, through ``run_pipeline`` (a checked warm-up batch, then
-    timed batches whose launches it asserts)."""
+    batches whose launches it asserts)."""
     cfg, runner, inputs = pipeline_setup(mesh=mesh, encode_parallel="sp")
-    counts, img_s, res = run_pipeline(cfg, runner, inputs,
-                                      expected_launches(cfg, _VIT_SP),
-                                      SP_BATCHES)
-    return dict(launches=counts, img_s=img_s, **res)
+    counts, res = run_pipeline(cfg, runner, inputs,
+                               expected_launches(cfg, _VIT_SP), SP_BATCHES)
+    return dict(launches=counts, **res)
 
 
 def sp_encode_768(mesh) -> dict:
@@ -1710,16 +1661,12 @@ def sp_narrow_check(ranks) -> None:
          ranks[1]["narrow"]["cuda"], r0["cuda"], *SP_EXACT)
 
 
-def sp_full_check(ranks, unsharded: dict, card: str) -> dict:
+def sp_full_check(ranks, unsharded: dict) -> dict:
     """Phase 5: the reference default over ``SP`` ranks (each asserted
     its launches in ``run_pipeline``) against the unsharded run's warm-up
     labels and map sums, and the 768 px SP encode's launches and its
     equality with the unsharded encode (K4). Returns rank 0's row of the
     pipeline line."""
-    for r, out in enumerate(ranks):
-        print(f"  336 px fused SP rank {r}: {out['full']['img_s']:.3f} img/s"
-              f" over {SP_BATCHES} batch (gloo transport on one card, no "
-              f"speed result) on {card}", flush=True)
     hold("336 px fused SP rank 0 vs the unsharded run", ranks[0]["full"],
          unsharded, *SP_EXACT)
     hold("336 px fused SP rank 1 vs rank 0", ranks[1]["full"],
@@ -1743,8 +1690,7 @@ def sp_full_check(ranks, unsharded: dict, card: str) -> dict:
           f"|diff| {enc['mean_abs']:.4g} (bar: equal)", flush=True)
     if enc["max_abs"] != 0:
         raise SystemExit("FAIL: 768 px SP encode differs from the unsharded")
-    return dict(img_per_s=ranks[0]["full"]["img_s"],
-                batch=full_config(336).batch_size, timed_batches=SP_BATCHES,
+    return dict(batch=full_config(336).batch_size, batches=SP_BATCHES,
                 note="gloo transport on one card, no speed result",
                 encode_768_s=enc["seconds"])
 
@@ -2751,11 +2697,11 @@ def _full(mesh, per_batch, capture: bool = False, **parallel) -> dict:
     setup_s = time.perf_counter() - t0
     round0, remove = capture_round0(runner, capture and mesh.rank == 0)
     try:
-        counts, img_s, res = run_pipeline(cfg, runner, inputs,
-                                          per_batch(cfg), SP_BATCHES)
+        counts, res = run_pipeline(cfg, runner, inputs, per_batch(cfg),
+                                   SP_BATCHES)
     finally:
         remove()
-    return dict(launches=counts, img_s=img_s, setup_s=setup_s,
+    return dict(launches=counts, setup_s=setup_s,
                 param_bytes=device_bytes(runner.model),
                 max_allocated=torch.cuda.max_memory_allocated(),
                 round0=round0, **res)
@@ -2878,10 +2824,10 @@ def full_mp_check(ranks, unsharded: dict, unfused: dict, round0: dict,
         kind = job[:2].upper()
         for r, out in enumerate(ranks):
             o = out[job]
-            print(f"  336 px fused {kind} rank {r}: {o['img_s']:.3f} img/s "
-                  f"over {SP_BATCHES} batch after a warm-up (gloo on one "
-                  f"card, no speed result; set-up {o['setup_s']:.1f} s), "
-                  f"parameters on the card {o['param_bytes'] / 2**20:.1f} "
+            print(f"  336 px fused {kind} rank {r}: set-up "
+                  f"{o['setup_s']:.1f} s (gloo on one card, no speed "
+                  f"result), parameters on the card "
+                  f"{o['param_bytes'] / 2**20:.1f} "
                   f"MiB, peak allocated {o['max_allocated'] / 2**30:.2f} "
                   f"GiB, on {card}", flush=True)
         hold(f"336 px fused {kind} rank 0 vs the unsharded run",
@@ -2890,8 +2836,8 @@ def full_mp_check(ranks, unsharded: dict, unfused: dict, round0: dict,
              ranks[0][job], *SP_EXACT)
         o = ranks[0][job]
         rows[f"336 px fused {kind} (rank 0)"] = dict(
-            img_per_s=o["img_s"], batch=full_config(336).batch_size,
-            timed_batches=SP_BATCHES, param_bytes=o["param_bytes"],
+            batch=full_config(336).batch_size, batches=SP_BATCHES,
+            param_bytes=o["param_bytes"],
             max_allocated=o["max_allocated"],
             note="gloo transport on one card, no speed result")
     return rows
@@ -3072,11 +3018,16 @@ def main() -> int:
     rows.update(fused_vit_kernels(cfg, cfg768))
     rows["gaussian_kernel_matmul"] = kernel_matmul_check(cfg)
     rows.update(xlen_and_bhsd_kernels(cfg, cfg768))
+    # ``ms`` the kernel, ``plain_ms`` its plain version, ``library_ms``
+    # one PyTorch call of the same function, ``unfused_ms`` the unfused
+    # route, ``bound_ms`` port_bench/counting.py's least time.
     for row in rows.values():
         for sh in row.get("shapes", [row]):
-            print(f"  {row['name']} {sh.get('shape', '')}: "
-                  f"{sh['gb_per_s']:.1f} GB/s achieved over the bytes its "
-                  "bound counts", flush=True)
+            times = ", ".join(f"{k} {v:.4f}" for k, v in sh.items()
+                              if k.endswith("ms") and v is not None)
+            print(f"  {row['name']} {sh.get('shape', '')}: {times} (bound "
+                  f"by {sh['bound_by']}), {sh['gb_per_s']:.1f} GB/s over "
+                  "the bytes its inputs and output take", flush=True)
     print(f"  phase 3: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
@@ -3104,21 +3055,18 @@ def main() -> int:
         round0[name], remove = capture_round0(
             runner, name in ("336 px fused", "336 px unfused"))
         try:
-            counts, img_s, summaries[name] = run_pipeline(
+            counts, summaries[name] = run_pipeline(
                 run_cfg, runner, inputs,
                 expected_launches(run_cfg, vit_kernels))
         finally:
             remove()
-        print(f"  {name}: {img_s:.3f} img/s on {card}", flush=True)
-        runs[name] = dict(img_per_s=img_s, batch=run_cfg.batch_size,
-                          timed_batches=PIPELINE_BATCHES)
         launch_runs[name] = counts
         del runner
         torch.cuda.empty_cache()
     print(f"  336 px fused SP: {SP} ranks on one card (gloo)", flush=True)
     ranks = run_ranks(["full", "encode_768"])
     runs["336 px fused SP (rank 0)"] = sp_full_check(
-        ranks, summaries["336 px fused"], card)
+        ranks, summaries["336 px fused"])
     launch_runs["336 px fused SP (rank 0)"] = ranks[0]["full"]["launches"]
     launch_runs["192 px unfused 3 heads (narrow)"] = k9_counts
     print(f"  phase 5: {time.perf_counter() - t0:.1f} s", flush=True)

@@ -35,6 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pnp_ovss_tpu_torch import to_device
 from pnp_ovss_tpu_torch.config import CRFConfig
 from pnp_ovss_tpu_torch.ops import _build
 from pnp_ovss_tpu_torch.ops.bilateral import (
@@ -401,8 +402,8 @@ def mean_field_crf_variants(
         bi_msg, sp_msg, rows_run = bilateral_apply, spatial_apply, v * c
     else:
         lo, hi, back = slots
-        back = _upload((np.arange(v)[:, None] * (hi - lo) + back)
-                       .reshape(-1), dev)
+        back = to_device((np.arange(v)[:, None] * (hi - lo) + back)
+                         .reshape(-1), dev)
         rows_run = v * (hi - lo)
 
         def distinct(apply_fn):
@@ -426,16 +427,6 @@ def mean_field_crf_variants(
         # The mean-field softmax runs per variant block of c rows.
         q = torch.softmax(energy.reshape(v, c, n), dim=1).reshape(v * c, n)
     return torch.argmax(q.reshape(v, c, n), dim=1).reshape(v, h, w)
-
-
-def _upload(index: np.ndarray, device) -> torch.Tensor:
-    """Host int64 index -> ``device``, without waiting for the device: a
-    pageable copy to the card synchronises the stream, a pinned one is
-    queued on it."""
-    t = torch.from_numpy(np.ascontiguousarray(index, dtype=np.int64))
-    if device.type != "cuda":
-        return t.to(device)
-    return t.pin_memory().to(device, non_blocking=True)
 
 
 def _fused_loop(logits, kt, pos_xy_std, cfg: CRFConfig, h: int, w: int,

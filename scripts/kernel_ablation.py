@@ -460,6 +460,7 @@ def main() -> int:
     from pnp_ovss_tpu_torch.ops import (
         _build, bilateral, flash_attention, vit_block,
     )
+    from port_bench import counting
 
     if not torch.cuda.is_available():
         print("kernel_ablation: no CUDA device", file=sys.stderr)
@@ -608,7 +609,8 @@ def main() -> int:
             fn.argtypes = _build.SOURCES["crf_matmul"]["gaussian_kernel_matmul"]
             runs = K8_RUNS.get(name, {name: (None, None)})
             for label, n8, m8, vals, packed, ref in k8_cases:
-                bms = chip_smoke.k8_bound_ms(n8, m8, vals.shape[1])[0]
+                bms = 1e3 * counting.gaussian_matmul_least_s(
+                    n8, m8, vals.shape[1])
                 width, _, plan_split = bilateral.matmul_plan(
                     n8, m8, vals.shape[1], sms)
                 for mode, (packing, split) in runs.items():
@@ -660,9 +662,7 @@ def main() -> int:
                 err = ("" if ref is None else "; max |out - plain| "
                        f"{(o.float() - ref).abs().max().item():.3g}")
                 ms = chip_smoke.time_ms(call, 20)
-                bms = chip_smoke.flash_bound_ms(
-                    (qkv.numel() + fb * fs * fh * fd) * 2, fb, fh, fs, fs,
-                    fd)[0]
+                bms = 1e3 * counting.flash_least_s(fb, fh, fs, fd)
                 print(f"{src} {name} {label}: {ms:.4f} ms ("
                       f"{4.0 * fb * fh * fs * fs * fd / ms / 1e9:.1f} "
                       f"TFLOP/s, {ms / bms:.2f}x its bound {bms:.4f}{err})",
