@@ -629,6 +629,7 @@ def clip_flash_kernel(gen) -> dict:
 K8_SHAPES = (
     ("exact C=58", "pixels", "pixels", 58, False, 7e-4),  # 3.35e-4
     ("exact degree C=1", "pixels", "pixels", 1, False, 2e-4),  # 8.62e-5
+    ("exact C=12", "pixels", "pixels", 12, False, 7e-4),
     ("nystrom K_AN C=58", "anchors", "pixels", 58, False, 5e-4),  # 2.18e-4
     ("nystrom K_NA C=58 signed", "pixels", "anchors", 58, True,
      4e-5),  # 1.95e-5
@@ -709,12 +710,15 @@ def kernel_matmul_check(cfg):
     pixels of the 192 bucket: the message with C = 58 channels of two
     variants and the degree with C = 1) and of the Nystrom CRF at s = 4
     (2304 anchors against the pixels and back, with signed values), the
-    features scaled as the runner scales them for a 500x375 GT. K8 rows
-    are independent, so the plain version runs on the first
-    ``K8_CHECK_ROWS`` i-rows against all j; a second launch must equal
-    the first bit for bit. Prints each shape's launch plan (channel
-    width, j split, work units an SM), read from the buffers of the
-    launch that ran. ``ms`` times the one-shot entry
+    features scaled as the runner scales them for a 500x375 GT, and the
+    exact CRF's widest message in the benchmark's traffic (C = 12, two
+    variants of 4 classes and 2 slots). K8 rows are independent, so the
+    plain version runs on the first ``K8_CHECK_ROWS`` i-rows against all
+    j; a second launch must equal the first bit for bit. Prints each
+    shape's schedule and launch plan (channel width, j split or block
+    side, work units an SM), read from the buffers of the launch that
+    ran, and asserts ``crf.k8_symmetric_launches``: one a call where the
+    j side is the i side and C <= 16 (the degree, C = 12), none else. ``ms`` times the one-shot entry
     ``gaussian_kernel_matmul``, which packs the features on every call,
     ``closure_ms`` the wrapper as the CRF calls it (``kernel_matmul_fn``,
     features packed once per image). Returns the row of the kernels line,
@@ -722,6 +726,7 @@ def kernel_matmul_check(cfg):
     import torch
 
     from pnp_ovss_tpu_torch.ops import bilateral
+    from pnp_ovss_tpu_torch.utils.tracing import TRACER
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -735,12 +740,33 @@ def kernel_matmul_check(cfg):
         fj_arg = None if side_i == side_j else fj
         # As the CRF calls it: the features packed once per image.
         fn = bilateral.kernel_matmul_fn(fi, fj_arg)
-        out = fn(vals)
+        TRACER.drain()
+        TRACER.enable()
+        try:
+            out = fn(vals)
+            counted = TRACER.drain()["counters"]
+        finally:
+            TRACER.disable()
         plan = fn.bufs[c]
-        units = plan.counters.numel() * plan.split  # tiles x chunks x split
-        print(f"  gaussian_kernel_matmul {label}: width {plan.width} x "
-              f"{-(-c // plan.width)} chunk(s), j split {plan.split}: "
-              f"{units} units, {units / sms:.3f} an SM of {sms}", flush=True)
+        symmetric = fj_arg is None and c <= 16
+        if plan.unit_tiles:
+            sym = bilateral.symmetric_plan(n, c, sms)
+            print(f"  gaussian_kernel_matmul {label}: symmetric schedule, "
+                  f"width {plan.width}, blocks of {plan.unit_tiles} row "
+                  f"tiles: {sym.units} units, {sym.units_per_sm:.3f} an SM "
+                  f"of {sms}, partials {plan.ws.numel() * 4 / 1e6:.1f} MB",
+                  flush=True)
+        else:
+            units = plan.counters.numel() * plan.split  # tiles x chunks x split
+            print(f"  gaussian_kernel_matmul {label}: general schedule, "
+                  f"width {plan.width} x {-(-c // plan.width)} chunk(s), j "
+                  f"split {plan.split}: {units} units, {units / sms:.3f} an "
+                  f"SM of {sms}", flush=True)
+        if bool(plan.unit_tiles) != symmetric or counted != (
+                {"crf.k8_symmetric_launches": 1} if symmetric else {}):
+            raise SystemExit(f"FAIL: gaussian_kernel_matmul {label}: "
+                             f"schedule {plan.unit_tiles}, counters "
+                             f"{counted}, want symmetric={symmetric}")
         if not (torch.equal(out, fn(vals)) and torch.equal(
                 out, bilateral.gaussian_kernel_matmul(fi, vals, fj_arg))):
             raise SystemExit(f"FAIL: gaussian_kernel_matmul {label}: two "

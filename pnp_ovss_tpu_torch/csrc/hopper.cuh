@@ -328,6 +328,30 @@ PNP_WGMMA_RS(48, 24, 24, 25, 26, 27, 28, 29)
 PNP_WGMMA_RS(64, 32, 32, 33, 34, 35, 36, 37)
 PNP_WGMMA_RS(96, 48, 48, 49, 50, 51, 52, 53)
 PNP_WGMMA_RS(128, 64, 64, 65, 66, 67, 68, 69)
+
+// d (64 x W, f32) += A (64 x 16, bf16 smem descriptor) * B (16 x W, bf16
+// smem descriptor), both K-major (desc_sw128), for W in {8, 16}; d = A * B
+// alone where `acc` is 0. d's layout as wgmma_rs's.
+template <int W>
+__device__ __forceinline__ void wgmma_ss(float (&d)[W / 2], uint64_t da,
+                                         uint64_t db, int acc = 1);
+#define PNP_WGMMA_SS(W, N, DA, DB, ACC)                                  \
+  template <>                                                            \
+  __device__ __forceinline__ void wgmma_ss<W>(float(&d)[N], uint64_t da, \
+                                              uint64_t db, int acc) {    \
+    asm volatile(                                                        \
+        "{\n"                                                            \
+        ".reg .pred p;\n"                                                \
+        "setp.ne.b32 p, %" #ACC ", 0;\n"                                 \
+        "wgmma.mma_async.sync.aligned.m64n" #W "k16.f32.bf16.bf16 {"     \
+        PNP_RS_S_##N "}, %" #DA ", %" #DB ", p, 1, 1, 0, 0;\n"           \
+        "}\n"                                                            \
+        : PNP_RS_D_##N                                                   \
+        : "l"(da), "l"(db), "r"(acc));                                   \
+  }
+PNP_WGMMA_SS(8, 4, 4, 5, 6)
+PNP_WGMMA_SS(16, 8, 8, 9, 10)
+#undef PNP_WGMMA_SS
 #undef PNP_WGMMA_RS
 #undef PNP_WGMMA_RS_TB
 #undef PNP_RS_D4
@@ -347,6 +371,26 @@ PNP_WGMMA_RS(128, 64, 64, 65, 66, 67, 68, 69)
 #undef PNP_RS_S_48
 #undef PNP_RS_D_64
 #undef PNP_RS_S_64
+
+// Stores four 8x8 bf16 matrices, transposed: register j of the thread
+// (row lane / 4, columns 2 (lane % 4) + {0, 1} of matrix j, mma.sync's
+// fragment layout) goes to column lane / 4 of rows 2 (lane % 4) + {0, 1};
+// lanes 8j .. 8j + 7 give the addresses of matrix j's eight stored rows,
+// 16 bytes each.
+__device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr,
+                                                  const uint32_t (&r)[4]) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], "
+      "{%1, %2, %3, %4};\n" ::"r"(addr),
+      "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+      : "memory");
+}
+
+// Orders this thread's earlier shared-memory writes before later reads by
+// the async proxy (wgmma operands, TMA stores).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
 template <int R>
 __device__ __forceinline__ void setmaxnreg_inc() {

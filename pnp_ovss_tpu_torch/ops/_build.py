@@ -53,6 +53,8 @@ SOURCES: Dict[str, Dict[str, list]] = {
     },
     "crf_matmul": {
         "gaussian_kernel_matmul": [_P] * 6 + [_I] * 7 + [_L, _I, _P],
+        "gaussian_kernel_matmul_symmetric": [_P] * 5 + [_I] * 6
+        + [_L, _I, _P],
         "gaussian_kernel_matmul_stall": [_P],
     },
     "ln_matmul": {

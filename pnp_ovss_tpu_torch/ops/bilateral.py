@@ -4,6 +4,9 @@
 - ``gaussian_kernel_matmul`` (K8, ``csrc/crf_matmul.cu``) computes the
   bilateral message ``sum_j exp(-||f_i - f_j||^2 / 2) v_j`` without
   materialising the kernel: the exact, unmaterialised and Nystrom CRFs.
+  Where the j side is the i side itself (no ``features_j``) and C <= 16,
+  it runs the symmetric schedule (``symmetric_plan``): each exponent once
+  for both k_ij and k_ji.
 - ``gaussian_kernel_materialize`` (K5, ``csrc/crf_materialize.cu``) builds
   the transposed bilateral kernel K^T [M_pad, N] once per image.
 - ``crf_fused_iteration`` (K6, ``csrc/crf_iteration.cu``) runs one
@@ -22,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from pnp_ovss_tpu_torch.ops import _build
+from pnp_ovss_tpu_torch.utils.tracing import TRACER
 
 KT_QUANT_SCALE = 255.0  # uint8 kernel storage: k in [0, 1] -> round(k*255)
 _OUT_KIND = {torch.uint8: 0, torch.float32: 1}
@@ -32,6 +36,17 @@ _MATMUL_FLD = 12  # floats a packed K8 feature row
 _MATMUL_WIDTHS = (8, 16, 32, 48, 64, 96, 128)  # K8's channels a chunk
 _MATMUL_MAX_SPLIT = 32  # j chunks at most
 _MATMUL_RESIDENT = 3  # K8 blocks an SM holds at W <= 64
+_SYM_WIDTHS = (8, 16)  # K8's widths on the symmetric schedule
+_SYM_MAX_TILES = 8  # row tiles a symmetric block side at most
+# The symmetric plan's costs in stages an SM (fitted to block sides 2-8
+# on the H100 at N = 36864, PERF.md): a unit's fixed cost, a block's
+# partials a channel, and the share of an SM's issue rate that 1, 2 or 3
+# resident blocks reach.
+_SYM_UNIT_COST = 1.35
+_SYM_PARTIAL_COST = 0.25
+_SYM_RATE = {1: 0.55, 2: 0.85, 3: 1.0}
+_SM_SMEM = 233472  # shared memory an H100 SM gives its blocks, bytes
+_BLOCK_SMEM_RESERVED = 1024  # the runtime's own a block, bytes
 _LOG2_SCALE = (0.5 / math.log(2.0)) ** 0.5  # exp(-d2 / 2) = 2^-(s^2 d2)
 
 
@@ -104,16 +119,110 @@ def matmul_plan(n: int, m: int, c: int, sms: int):
     return width, chunks, split
 
 
+class SymmetricPlan(NamedTuple):
+    """K8's launch shape on the symmetric schedule: wgmma's n, row tiles a
+    block side, blocks along N, units (block pairs P <= Q, one launch
+    block each; one reduction block a row tile follows them), the
+    workspace's f32 partials (one a pixel, channel and block) and units an
+    SM."""
+    width: int
+    unit_tiles: int
+    blocks: int
+    units: int
+    ws_floats: int
+    units_per_sm: float
+
+
+def symmetric_width(c: int):
+    """wgmma's n of the symmetric schedule for C channels, or None where
+    it does not run (C > 16: a unit's J-side sums outgrow shared memory,
+    and smaller units would spend more on partials than the exponents
+    save)."""
+    return next((w for w in _SYM_WIDTHS if w >= c), None)
+
+
+def symmetric_smem_bytes(width: int, unit_tiles: int) -> int:
+    """Shared memory of a symmetric K8 block (``csrc/crf_matmul.cu``'s
+    sym_smem_bytes): a ring of 4 stages (3 at n = 16) of v^T and column
+    features, the K^T tile, two v_rt^T buffers and the J-side sums of 2R
+    stages, or the reduction's 64 KB if larger; barriers and 1 KB of
+    alignment room."""
+    stages = 4 if width <= 8 else 3
+    main = (stages * (width * _MATMUL_BJ * 2 + _MATMUL_BJ * _MATMUL_FLD * 4)
+            + 2 * 64 * _MATMUL_BJ * 2 + 4 * width * _MATMUL_BJ * 2
+            + 2 * unit_tiles * _MATMUL_BJ * width * 4)
+    return max(main, 4 * 8 * 16 * _MATMUL_ROWS) + (stages + 2) * 8 + 1024
+
+
+@functools.lru_cache(maxsize=None)
+def symmetric_plan(n: int, c: int, sms: int):
+    """K8's symmetric launch shape for K v with both sides the same N
+    pixels and C channels on ``sms`` SMs -> ``SymmetricPlan``, or None
+    where C > 16. The pixels form blocks of R row tiles; R (1-8)
+    minimises the stages an SM runs: whole waves of units, each SM holding
+    as many blocks as fit its shared memory (at most 3; the J-side sums
+    grow with R), a unit of 2R^2 stages, plus ``_SYM_UNIT_COST`` stages a
+    unit and ``_SYM_PARTIAL_COST`` a block and channel of partials, over
+    the issue rate the resident blocks reach; the largest R within 1% of
+    the least, whose partials, N * blocks * width floats, are fewest."""
+    width = symmetric_width(c)
+    if width is None or n < 1:
+        return None
+    row_tiles = -(-n // _MATMUL_ROWS)
+
+    def shape(r):
+        blocks = -(-row_tiles // r)
+        return blocks, blocks * (blocks + 1) // 2
+
+    def cost(r):
+        blocks, units = shape(r)
+        resident = min(_MATMUL_RESIDENT, _SM_SMEM // (
+            symmetric_smem_bytes(width, r) + _BLOCK_SMEM_RESERVED))
+        waves = -(-units // (sms * resident))
+        return (waves * resident * 2 * r * r + _SYM_UNIT_COST * units / sms
+                + _SYM_PARTIAL_COST * blocks * width) / _SYM_RATE[resident]
+
+    # The largest R within 1% of the least cost: fewer partials.
+    least = min(cost(r) for r in range(1, _SYM_MAX_TILES + 1))
+    r = next(r for r in range(_SYM_MAX_TILES, 0, -1)
+             if cost(r) <= 1.01 * least)
+    blocks, units = shape(r)
+    return SymmetricPlan(width, r, blocks, units,
+                         row_tiles * blocks * _MATMUL_ROWS * width,
+                         units / sms)
+
+
+def symmetric_schedule(n: int, unit_tiles: int):
+    """The symmetric launch's work in the kernel's order: (P, Q, row tile,
+    stage, both) for each 128-row tile x 64-column stage whose exponents
+    it computes, unit (P, Q) by unit, P <= Q. ``both``: the tile also
+    feeds the transposed product (out_stage += K^T v_rowtile); without it
+    (the 128-pixel diagonal tiles) only out_rowtile += K v_stage."""
+    row_tiles, stages = -(-n // _MATMUL_ROWS), -(-n // _MATMUL_BJ)
+    blocks = -(-row_tiles // unit_tiles)
+    for p in range(blocks):
+        for q in range(p, blocks):
+            st0 = 2 * q * unit_tiles
+            st1 = min(st0 + 2 * unit_tiles, stages)
+            for rt in range(p * unit_tiles,
+                            min((p + 1) * unit_tiles, row_tiles)):
+                for s in range(2 * rt if p == q else st0, st1):
+                    yield p, q, rt, s, s >= 2 * rt + 2
+
+
 class MatmulBufs(NamedTuple):
     """K8's buffers and launch shape for one channel count and M: v^T
     [C, M rounded up to 8] bf16, the workspace of f32 partials, one
-    counter a row tile and channel chunk (0 between launches), wgmma's n
-    and the j split."""
+    counter a row tile and channel chunk (two a block, on the symmetric
+    schedule; 0 between launches), wgmma's n, the j split and, on the
+    symmetric schedule, its row tiles a block side (0: the general
+    schedule)."""
     vt: torch.Tensor
     ws: torch.Tensor
     counters: torch.Tensor
     width: int
     split: int
+    unit_tiles: int = 0
 
 
 def matmul_bufs(n: int, m: int, c: int, device, width: int, split: int,
@@ -122,10 +231,36 @@ def matmul_bufs(n: int, m: int, c: int, device, width: int, split: int,
     ``split``, in row tiles of ``rows`` (the kernel's)."""
     tiles = -(-n // rows) * -(-c // width)
     ws_floats = tiles * rows * width * split if split > 1 else 0
-    return MatmulBufs(
-        torch.empty((c, -(-m // 8) * 8), dtype=torch.bfloat16, device=device),
-        torch.empty(ws_floats, dtype=torch.float32, device=device),
-        torch.zeros(tiles, dtype=torch.int32, device=device), width, split)
+    return MatmulBufs(_vt_buffer(m, c, device),
+                      torch.empty(ws_floats, dtype=torch.float32,
+                                  device=device),
+                      torch.zeros(tiles, dtype=torch.int32, device=device),
+                      width, split)
+
+
+def symmetric_bufs(n: int, c: int, device, plan: SymmetricPlan,
+                   ws=None) -> MatmulBufs:
+    """K8's buffers on the symmetric schedule of ``plan``, for N pixels
+    and C channels; ``ws``, a workspace to share, where it is large
+    enough."""
+    if ws is None or ws.numel() < plan.ws_floats:
+        ws = torch.empty(plan.ws_floats, dtype=torch.float32, device=device)
+    return MatmulBufs(_vt_buffer(n, c, device), ws,
+                      torch.zeros(2 * plan.blocks, dtype=torch.int32,
+                                  device=device),
+                      plan.width, 1, plan.unit_tiles)
+
+
+def _vt_buffer(m: int, c: int, device) -> torch.Tensor:
+    return torch.empty((c, -(-m // 8) * 8), dtype=torch.bfloat16,
+                       device=device)
+
+
+def _fill_vt(vt: torch.Tensor, values: torch.Tensor) -> None:
+    """values [M, C] or [M, G, A] (any strides) into v^T [C, >= M] bf16,
+    one copy."""
+    vt[:, :values.shape[0]].unflatten(0, values.shape[1:]).copy_(
+        values.movedim(0, -1))
 
 
 def launch_matmul(fn, fi: torch.Tensor, fj: torch.Tensor, f: int,
@@ -142,14 +277,30 @@ def launch_matmul(fn, fi: torch.Tensor, fj: torch.Tensor, f: int,
         sms = torch.cuda.get_device_properties(fi.device).multi_processor_count
         width, _, split = matmul_plan(n, m, c, sms)
         bufs = matmul_bufs(n, m, c, fi.device, width, split)
-    bufs.vt[:, :m].unflatten(0, values.shape[1:]).copy_(
-        values.movedim(0, -1))
+    _fill_vt(bufs.vt, values)
     out = torch.empty((n, c), dtype=torch.float32, device=fi.device)
     rc = fn(fi.data_ptr(), fj.data_ptr(), bufs.vt.data_ptr(), out.data_ptr(),
             bufs.ws.data_ptr(), bufs.counters.data_ptr(), n, m,
             bufs.vt.shape[1], f, c, bufs.width, bufs.split, bufs.ws.numel(),
             bufs.counters.numel(), stream)
     return rc, out, bufs
+
+
+def launch_matmul_symmetric(fn, fp: torch.Tensor, f: int,
+                            values: torch.Tensor, stream: int,
+                            bufs: MatmulBufs):
+    """One call of K8's symmetric C entry ``fn`` on packed features ``fp``
+    [N, 12] (both sides) and ``values`` [N, C] or [N, G, A], with
+    ``bufs`` from ``symmetric_bufs`` whose counters are 0. Returns (return
+    code, out [N, C] f32)."""
+    n, c = fp.shape[0], math.prod(values.shape[1:])
+    _fill_vt(bufs.vt, values)
+    out = torch.empty((n, c), dtype=torch.float32, device=fp.device)
+    rc = fn(fp.data_ptr(), bufs.vt.data_ptr(), out.data_ptr(),
+            bufs.ws.data_ptr(), bufs.counters.data_ptr(), n,
+            bufs.vt.shape[1], f, c, bufs.width, bufs.unit_tiles,
+            bufs.ws.numel(), bufs.counters.numel(), stream)
+    return rc, out
 
 
 def kernel_matmul_fn(features: torch.Tensor, features_j=None):
@@ -159,7 +310,13 @@ def kernel_matmul_fn(features: torch.Tensor, features_j=None):
     values may also be [M, G, A], G groups of A channels with any strides
     (the CRF's distinct state rows of each variant): the result is [N,
     G * A], the channels in that order, and the gather rides in the copy
-    into v^T."""
+    into v^T.
+
+    Without ``features_j`` (the j side is the i side: the exact CRF) a
+    call with C <= 16 runs the symmetric schedule and counts
+    ``crf.k8_symmetric_launches``, on the CPU too (where the plain
+    version runs); passing ``features_j=features`` keeps the general
+    one."""
     fj_src = features if features_j is None else features_j
     f, m = features.shape[1], fj_src.shape[0]
     if fj_src.shape[1] != f or not 1 <= f <= 8:
@@ -189,6 +346,9 @@ def kernel_matmul_fn(features: torch.Tensor, features_j=None):
     if features.device.type == "cpu":
         def plain(values):
             check_values(values)
+            if features_j is None and symmetric_width(
+                    math.prod(values.shape[1:])):
+                TRACER.count("crf.k8_symmetric_launches")
             return kernel_matmul_plain(features, values, features_j)
         return plain
 
@@ -209,14 +369,32 @@ def kernel_matmul_fn(features: torch.Tensor, features_j=None):
     # Rewriting v^T is safe: the copy and the launches that read it are
     # ordered on the current stream, and each launch leaves its counters 0.
     bufs = {}
+    sms = torch.cuda.get_device_properties(fi.device).multi_processor_count
 
     def launch(values):
         check_values(values)
         lib = _build.library("crf_matmul")
         c = math.prod(values.shape[1:])
-        rc, out, bufs[c] = launch_matmul(
-            lib.gaussian_kernel_matmul, fi, fj, f_kernel, values,
-            _build.stream_ptr(fi), bufs.get(c))
+        plan = symmetric_plan(n, c, sms) if features_j is None else None
+        stream = _build.stream_ptr(fi)
+        if plan is None:
+            rc, out, bufs[c] = launch_matmul(
+                lib.gaussian_kernel_matmul, fi, fj, f_kernel, values, stream,
+                bufs.get(c))
+        else:
+            if c not in bufs:
+                # The closure's symmetric launches share one workspace,
+                # the largest they need: they run in turn on one stream.
+                sym = {k: b for k, b in bufs.items() if b.unit_tiles}
+                bufs[c] = symmetric_bufs(n, c, fi.device, plan, max(
+                    (b.ws for b in sym.values()), key=torch.numel,
+                    default=None))
+                for k, b in sym.items():
+                    bufs[k] = b._replace(ws=bufs[c].ws)
+            rc, out = launch_matmul_symmetric(
+                lib.gaussian_kernel_matmul_symmetric, fi, f_kernel, values,
+                stream, bufs[c])
+            TRACER.count("crf.k8_symmetric_launches")
         _build.check(lib, rc, "gaussian_kernel_matmul")
         _build.LAUNCHES["gaussian_kernel_matmul"] += 1
         return out

@@ -7,7 +7,7 @@ work taken out, or with another block shape, and timed at its main-path
 shapes (336 px; K4 at 768 px, B = 12, S = 2305; the flash kernel also at
 the CLIP scorer's [8, 577] and at S = 2305 with head dim 64 and 128; K5 and K6 at chip_smoke.py's shapes,
 M = 2304 anchors, N = 36864 pixels, R = 64, v = 2, c = 29; K8 at
-chip_smoke.py's four shapes) beside the full kernel.
+chip_smoke.py's five shapes) beside the full kernel.
 
     python3 scripts/kernel_ablation.py [--out DIR] [--kernels SRC,...]
         [--variants NAME,...]
@@ -50,8 +50,9 @@ their outputs are wrong by design and only their times are read):
   design: ``no_exp`` takes the score difference itself as P (no
   exponentials), ``no_pv`` skips the P V products, ``no_qk`` the QK^T
   products;
-- K8 (each at chip_smoke.py's four shapes: the exact CRF's message,
-  C = 58, and degree, C = 1, and both Nystrom shapes): ``no_ex2`` takes
+- K8 (each at chip_smoke.py's five shapes: the exact CRF's messages,
+  C = 58 and 12, and degree, C = 1, and both Nystrom shapes; the general
+  schedule, ``features_j`` given): ``no_ex2`` takes
   the exponent itself as k, ``no_mma`` replaces the products by a
   register update, ``no_ex2_no_mma`` both, ``no_cvt`` rounds k to bf16
   by truncation (a byte permute) in place of cvt.rn, ``skeleton`` takes
@@ -136,92 +137,106 @@ _K6_TMA_K = "pnp::hopper::tma_load_2d(smem + slot * kStageBytes + kQTile"
 
 # K8: its exponent (explicit differences) and product lines, and the
 # f32 expansion in their place (row and column norms at feature F).
-_K8_EXP = """          float d2 = 0.f;
+_K8_EXP = """        float d2 = 0.f;
 #pragma unroll
-          for (int d = 0; d < F; ++d) {
-            const float e = ra[r][d] - b[d];
-            d2 = fmaf(e, e, d2);
-          }
-          k[r][c] = exp2_ftz(-d2);"""
-_K8_EXPANSION = """          float x = b[F];
+        for (int d = 0; d < F; ++d) {
+          const float e = ra[r][d] - b[d];
+          d2 = fmaf(e, e, d2);
+        }
+        k[r][c] = exp2_ftz(-d2);"""
+_K8_EXPANSION = """        float x = b[F];
 #pragma unroll
-          for (int d = 0; d < F; ++d) x = fmaf(ra[r][d], b[d], x);
-          k[r][c] = exp2_ftz(x + ra[r][F]);"""
+        for (int d = 0; d < F; ++d) x = fmaf(ra[r][d], b[d], x);
+        k[r][c] = exp2_ftz(x + ra[r][F]);"""
 _K8_ROW_LOAD = "for (int d = 0; d < F; ++d) ra[r][d] = row < N ? p[d] : 0.f;"
 _K8_WGMMA = "pnp::hopper::wgmma_rs<W>(acc[i], a[s][i], db + 2 * s);"
 _K8_SKELETON = (_K8_EXP,
-                "          k[r][c] = ra[r][c & 1] * b[r % F];")
+                "        k[r][c] = ra[r][c & 1] * b[r % F];")
 _K8_EXPECT = "pnp::hopper::mbar_expect_tx(&full[slot], kStage);"
-_K8_TMA_V = "pnp::hopper::tma_load_2d(v_tile(slot), &tm_v,"
+_K8_TMA_V = "pnp::hopper::tma_load_2d(v_tile(slot), tm_v,"
 _K8_TMA_F = "pnp::hopper::tma_load_2d(smem + slot * kStage + W * kBJ * 2,"
 _K8_NO_EX2 = ("k[r][c] = exp2_ftz(-d2);", "k[r][c] = -d2;")
 _K8_NO_MMA = (_K8_WGMMA, "acc[i][0] += __uint_as_float(a[s][i][0] ^ "
               "a[s][i][1] ^ a[s][i][2] ^ a[s][i][3]);")
-_K8_BOUNDS = ("__launch_bounds__(kThreads, (F == 5 && W <= 64) ? 3 : 2)",
+_K8_BOUNDS = ("__launch_bounds__(\n    kThreads, (F == 5 && W <= (kSym ? 16 : 64)) ? 3 : 2)",
               "__launch_bounds__(kThreads, 2)")
-# Each k16 step's products issued as soon as its fragments are packed.
+# Each k16 step's products issued as soon as its fragments are packed:
+# k_fragments calls a hook after each step (the symmetric schedule's an
+# empty one).
 _K8_STEP_ISSUE = [
-    ("    const float* fs = f_tile(it % kStages);\n",
-     "    const float* fs = f_tile(it % kStages);\n"
-     "    const uint64_t db =\n"
-     "        pnp::hopper::desc_sw128(v_tile(it % kStages));\n"),
-    ("""    const uint64_t db = pnp::hopper::desc_sw128(v_tile(it % kStages));
+    ("""template <int F>
+__device__ __forceinline__ void k_fragments(
+    const float (&ra)[2 * kTiles][F], const float* fs, int t,
+    uint32_t (&a)[kBJ / 16][kTiles][4]) {""",
+     """template <int F, typename Hook>
+__device__ __forceinline__ void k_fragments(
+    const float (&ra)[2 * kTiles][F], const float* fs, int t,
+    uint32_t (&a)[kBJ / 16][kTiles][4], Hook hook) {"""),
+    ("""      a[s][i][3] = pnp::pack_bf16x2(k[2 * i + 1][2], k[2 * i + 1][3]);
+    }
+""", """      a[s][i][3] = pnp::pack_bf16x2(k[2 * i + 1][2], k[2 * i + 1][3]);
+    }
+    hook(s);
+"""),
+    ("""    k_fragments<F>(ra, f_tile(it % kStages), t, a);
+    const uint64_t db = pnp::hopper::desc_sw128(v_tile(it % kStages));
     pnp::hopper::wgmma_fence();
 #pragma unroll
     for (int s = 0; s < kBJ / 16; ++s)
 #pragma unroll
       for (int i = 0; i < kTiles; ++i)
         pnp::hopper::wgmma_rs<W>(acc[i], a[s][i], db + 2 * s);
-    pnp::hopper::wgmma_commit();""", "    pnp::hopper::wgmma_commit();"),
-    ("""        a[s][i][3] = pnp::pack_bf16x2(k[2 * i + 1][2], k[2 * i + 1][3]);
-      }
-""", """        a[s][i][3] = pnp::pack_bf16x2(k[2 * i + 1][2], k[2 * i + 1][3]);
-      }
+    pnp::hopper::wgmma_commit();""",
+     """    const uint64_t db = pnp::hopper::desc_sw128(v_tile(it % kStages));
+    k_fragments<F>(ra, f_tile(it % kStages), t, a, [&](int s) {
       pnp::hopper::wgmma_fence();
 #pragma unroll
       for (int i = 0; i < kTiles; ++i)
         pnp::hopper::wgmma_rs<W>(acc[i], a[s][i], db + 2 * s);
-""")]
+    });
+    pnp::hopper::wgmma_commit();"""),
+    ("k_fragments<F>(ra, f_tile(it % kSt), t, a);",
+     "k_fragments<F>(ra, f_tile(it % kSt), t, a, [](int) {});")]
 # A k16 step's exponents breadth first: each feature's differences for
 # all 16 entries, then the next feature's (outputs unchanged).
-_K8_STEP_BODY = """      float k[2 * kTiles][4];
+_K8_STEP_BODY = """    float k[2 * kTiles][4];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float b[F];
-        load_column(fs + (s * 16 + 2 * t + (c & 1) + 8 * (c >> 1)) * kFLd, b);
+    for (int c = 0; c < 4; ++c) {
+      float b[F];
+      load_column(fs + (s * 16 + 2 * t + (c & 1) + 8 * (c >> 1)) * kFLd, b);
 #pragma unroll
-        for (int r = 0; r < 2 * kTiles; ++r) {
-          float d2 = 0.f;
+      for (int r = 0; r < 2 * kTiles; ++r) {
+        float d2 = 0.f;
 #pragma unroll
-          for (int d = 0; d < F; ++d) {
-            const float e = ra[r][d] - b[d];
-            d2 = fmaf(e, e, d2);
-          }
-          k[r][c] = exp2_ftz(-d2);
+        for (int d = 0; d < F; ++d) {
+          const float e = ra[r][d] - b[d];
+          d2 = fmaf(e, e, d2);
         }
+        k[r][c] = exp2_ftz(-d2);
       }
+    }
 """
-_K8_STEP_BFS = """      float b[4][F], k[2 * kTiles][4];
+_K8_STEP_BFS = """    float b[4][F], k[2 * kTiles][4];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        load_column(fs + (s * 16 + 2 * t + (c & 1) + 8 * (c >> 1)) * kFLd,
-                    b[c]);
+    for (int c = 0; c < 4; ++c) {
+      load_column(fs + (s * 16 + 2 * t + (c & 1) + 8 * (c >> 1)) * kFLd,
+                  b[c]);
 #pragma unroll
-        for (int r = 0; r < 2 * kTiles; ++r) k[r][c] = 0.f;
-      }
+      for (int r = 0; r < 2 * kTiles; ++r) k[r][c] = 0.f;
+    }
 #pragma unroll
-      for (int d = 0; d < F; ++d)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-#pragma unroll
-          for (int r = 0; r < 2 * kTiles; ++r) {
-            const float e = ra[r][d] - b[c][d];
-            k[r][c] = fmaf(e, e, k[r][c]);
-          }
+    for (int d = 0; d < F; ++d)
 #pragma unroll
       for (int c = 0; c < 4; ++c)
 #pragma unroll
-        for (int r = 0; r < 2 * kTiles; ++r) k[r][c] = exp2_ftz(-k[r][c]);
+        for (int r = 0; r < 2 * kTiles; ++r) {
+          const float e = ra[r][d] - b[c][d];
+          k[r][c] = fmaf(e, e, k[r][c]);
+        }
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int r = 0; r < 2 * kTiles; ++r) k[r][c] = exp2_ftz(-k[r][c]);
 """
 # Runs of each K8 build: {run: (packing, split)}; packing None is the
 # wrapper's, else the expansion's operands centred or not; split None is
@@ -362,11 +377,11 @@ VARIANTS = {
         "no_ex2_no_mma": [_K8_NO_EX2, _K8_NO_MMA],
         # bf16 by truncation (a byte permute) in place of cvt.rn.
         "no_cvt": [("pnp::pack_bf16x2(k", "trunc_pack(k"),
-                   ("template <int F, int W>\n__global__",
+                   ("// A stage's 32 A fragments",
                     "__device__ __forceinline__ uint32_t trunc_pack(float x, "
                     "float y) {\n  return __byte_perm(__float_as_uint(x), "
                     "__float_as_uint(y), 0x7632);\n}\n\n"
-                    "template <int F, int W>\n__global__")],
+                    "// A stage's 32 A fragments")],
         "minb2": [_K8_BOUNDS],
         "step_issue": _K8_STEP_ISSUE,
         "stages3": [("constexpr int kStages = 4;",
@@ -384,6 +399,7 @@ VARIANTS = {
                          "constexpr int kTiles = 3;"), _K8_BOUNDS],
         "expansion": [("float ra[2 * kTiles][F];",
                        "float ra[2 * kTiles][F + 1];"),
+                      ("(&ra)[2 * kTiles][F]", "(&ra)[2 * kTiles][F + 1]"),
                       (_K8_ROW_LOAD, _K8_ROW_LOAD.replace("d < F", "d <= F")),
                       ("float b[F];", "float b[F + 1];"),
                       (_K8_EXP, _K8_EXPANSION)],
@@ -518,7 +534,7 @@ def main() -> int:
                              torch.empty((fb, fs, fh * fd),
                                          dtype=torch.bfloat16, device=dev),
                              fb, fs, fh, fd, ref))
-    # K8 at chip_smoke.py's four shapes and features, packed for each run;
+    # K8 at chip_smoke.py's five shapes and features, packed for each run;
     # the plain version on the first 1024 rows of each.
     k8_support = chip_smoke.k8_support(cfg, gen)
     k8_cases = []

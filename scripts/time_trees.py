@@ -13,9 +13,10 @@ this, DIR. Prints the card's name and power limit, then each measurement
 with every tree's mean and runs, this / tree, and for the flash kernel
 the largest difference between the trees' outputs.
 
-- ``k8``: K8 at chip_smoke.py's four shapes (the exact CRF's message and
-  degree, both Nystrom products) through ``gaussian_kernel_matmul``, which
-  packs the features every call (``one_shot_ms``), and through the closure
+- ``k8``: K8 at chip_smoke.py's five shapes (the exact CRF's message at
+  C = 58 and 12 and its degree, both Nystrom products) through
+  ``gaussian_kernel_matmul``, which packs the features every call
+  (``one_shot_ms``), and through the closure
   of ``kernel_matmul_fn`` as the CRF calls it (``closure_ms``); then the
   closure on the first 4 and 8 slots of each variant of the exact CRF's
   2 x 29-slot state (C = 8, 16; strided [M, G, A] values) and its wgmma

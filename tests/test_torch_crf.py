@@ -7,6 +7,8 @@ mode. Inputs are numpy arrays from a seed, handed to both. chip_smoke.py
 holds the CUDA kernels against the same plain versions on the card.
 """
 
+import collections
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -289,6 +291,127 @@ def test_kernel_matmul_plan(n, m, c, want, units):
     assert -(-n // 128) * chunks * split == units
 
 
+@pytest.mark.parametrize("n,unit_tiles", [
+    (36864, 8), (36864, 3), (4097, 1), (4097, 8), (500, 2), (1100, 8),
+    (64, 1)])
+def test_symmetric_schedule_covers_every_pair_once(n, unit_tiles):
+    """K8's symmetric schedule at N a multiple of the 128-row tile and
+    not, at block sides that divide the row tiles and not: every ordered
+    pair of 64-pixel stages (a output, b input) gets its contribution
+    exactly once, from a computed exponent tile directly (rows of a
+    against columns of b) or transposed (the tile of b's rows against a's
+    columns); each exponent tile is computed once, the unordered pairs'
+    half plus the 128-pixel diagonal tiles; every pixel's partial from
+    every block is written once, by one unit."""
+    stages, row_tiles = -(-n // 64), -(-n // 128)
+    blocks = -(-row_tiles // unit_tiles)
+    got = collections.Counter()
+    tiles = collections.Counter()
+    for p, q, rt, s, both in port_bp.symmetric_schedule(n, unit_tiles):
+        assert p <= q and rt // unit_tiles == p and s // (2 * unit_tiles) \
+            == q
+        tiles[rt, s] += 1
+        for a in (2 * rt, 2 * rt + 1):
+            if a < stages:
+                got[a, s] += 1
+                if both:
+                    got[s, a] += 1
+    assert got == collections.Counter(
+        {(a, b): 1 for a in range(stages) for b in range(stages)})
+    assert max(tiles.values()) == 1
+    # Exponent tiles: the diagonal 128 x 128 tiles and one of each
+    # off-diagonal pair of 128-pixel row tile and 64-pixel stage.
+    diag = sum(min(2, stages - 2 * rt) for rt in range(row_tiles))
+    assert sum(tiles.values()) == diag + sum(
+        max(0, stages - 2 * rt - 2) for rt in range(row_tiles))
+    # Partials: unit (P, Q) writes rows of P (I side, slot Q) unless it
+    # is the diagonal, and rows of Q (J side, or both on the diagonal,
+    # slot P).
+    written = collections.Counter()
+    units = sorted({(p, q) for p, q, *_ in
+                    port_bp.symmetric_schedule(n, unit_tiles)})
+    assert units == [(p, q) for p in range(blocks)
+                     for q in range(p, blocks)]
+    for p, q in units:
+        for rt in range(p * unit_tiles, min((p + 1) * unit_tiles, row_tiles)):
+            if p != q:
+                written[rt, q] += 1
+        for rt in range(q * unit_tiles, min((q + 1) * unit_tiles, row_tiles)):
+            written[rt, p] += 1
+    assert written == collections.Counter(
+        {(rt, b): 1 for rt in range(row_tiles) for b in range(blocks)})
+
+
+@pytest.mark.parametrize("n,c,want", [
+    (36864, 1, (8, 6, 48, 1176)),  # the exact CRF's degree
+    (36864, 6, (8, 6, 48, 1176)),  # a message, 1 class
+    (36864, 12, (16, 4, 72, 2628)),  # a message, 4 classes
+    (36864, 58, None),  # 28 classes: the general schedule
+    (4097, 12, (16, 2, 17, 153)),  # few pixels: small blocks
+    (500, 1, (8, 1, 4, 10)),
+])
+def test_symmetric_plan(n, c, want):
+    """The symmetric launch shape on the H100's 132 SMs: wgmma's n (8 or
+    16; none above 16 channels) and the block side the cost model picks
+    (at the exact CRF's 36864 pixels: 6 row tiles at n = 8, 1176 units
+    with 3 blocks an SM; 4 at n = 16, where larger sides hold 2 blocks an
+    SM), the workspace of one f32 partial a pixel, channel and block
+    (56.6 MB at n = 8, 169.9 at n = 16) and the units an SM."""
+    plan = port_bp.symmetric_plan(n, c, 132)
+    if want is None:
+        assert plan is None and port_bp.symmetric_width(c) is None
+        return
+    assert (plan.width, plan.unit_tiles, plan.blocks, plan.units) == want
+    assert plan.ws_floats == -(-n // 128) * plan.blocks * 128 * plan.width
+    assert plan.units_per_sm == plan.units / 132
+    if n == 36864:
+        assert plan.ws_floats * 4 == {8: 56623104,
+                                      16: 169869312}[plan.width]
+
+
+@pytest.mark.parametrize("width,unit_tiles,smem,resident", [
+    (8, 6, 66608, 3), (8, 8, 70704, 3), (16, 4, 73768, 3),
+    (16, 5, 81960, 2)])
+def test_symmetric_smem_bytes(width, unit_tiles, smem, resident):
+    """A symmetric block's shared memory (the kernel's sym_smem_bytes) and
+    the blocks an H100 SM holds: the reduction's 64 KB bound n = 8 up to 7
+    row tiles a side; at n = 16 the J-side sums of 5 row tiles leave room
+    for 2 blocks only."""
+    got = port_bp.symmetric_smem_bytes(width, unit_tiles)
+    assert got == smem
+    assert 233472 // (got + 1024) == resident
+
+
+@pytest.mark.parametrize("branch,want", [
+    ("exact", CRFConfig().num_iters + 1), ("nystrom", 0),
+    ("unmaterialised", 0)])
+def test_k8_symmetric_launches_counter(monkeypatch, branch, want):
+    """``crf.k8_symmetric_launches`` counts the K8 calls that take the
+    symmetric schedule (the plain version's on the CPU): the exact CRF's
+    degree and every message (10 rows: a live background and 3 classes
+    of each variant), and none of the Nystrom's or the unmaterialised
+    strided CRF's, whose j side is the strided support."""
+    from pnp_ovss_tpu_torch.utils.tracing import TRACER
+
+    valid = np.asarray(_MASKS["classes_dead"])
+    logits, image = _masked_logits(np.random.RandomState(55), 24, valid)
+    kw = {"exact": dict(bilateral_subsample=1),
+          "nystrom": dict(bilateral_subsample=4, bilateral_mode="nystrom"),
+          "unmaterialised": dict(bilateral_subsample=4)}[branch]
+    if branch == "unmaterialised":
+        monkeypatch.setattr(port_crf, "_MATERIALIZE_LIMIT", 0)
+    TRACER.drain()
+    TRACER.enable()
+    try:
+        port_crf.mean_field_crf_variants(logits, image, CRFConfig(),
+                                         channel_valid=valid, **kw)
+        counted = TRACER.drain()["counters"]
+    finally:
+        TRACER.disable()
+    assert counted.get("crf.k8_symmetric_launches", 0) == want
+    assert counted["crf.rows_run"] == 2 * CRFConfig().num_iters * 2 * 5
+
+
 def test_kernel_matmul_reads_strided_values():
     """The CRF hands K8 transposed and strided views of its [C', N] state;
     the result equals that of a contiguous copy."""
@@ -545,9 +668,10 @@ def test_fused_branch_ignores_channel_valid():
 def test_crf_rows_counters():
     """``crf.rows`` and ``crf.rows_run`` sum the state rows and the rows
     run over the unfused loop's messages (two an iteration) while the
-    tracer is on: 58 and 2 x 5 with a live background and 3 live classes;
-    nothing while it is off; from the fused branch only its own
-    ``crf.spatial_launches``, one an iteration."""
+    tracer is on: 58 and 2 x 5 with a live background and 3 live classes,
+    beside the exact CRF's ``crf.k8_symmetric_launches`` (the degree and
+    every message); nothing while it is off; from the fused branch only
+    its own ``crf.spatial_launches``, one an iteration."""
     from pnp_ovss_tpu_torch.utils.tracing import TRACER
 
     valid = np.asarray(_MASKS["classes_dead"])
@@ -571,5 +695,6 @@ def test_crf_rows_counters():
     finally:
         TRACER.disable()
     assert counted == {"crf.rows": messages * 58,
-                       "crf.rows_run": messages * 2 * 5}
+                       "crf.rows_run": messages * 2 * 5,
+                       "crf.k8_symmetric_launches": CRFConfig().num_iters + 1}
     assert fused == {"crf.spatial_launches": CRFConfig().num_iters}

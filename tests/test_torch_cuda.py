@@ -14,7 +14,9 @@ row-padded anchors, one variant and fewer than 64 state rows; for the
 fused ViT kernels (K1, K3, K4) row counts that are no multiple of the
 row tile, narrow widths, masked keys and several key tiles; for K8 ragged
 N and M, M != N, 1 to 150 channels, strided values, 8 features, the split
-over j, bit-equal launches, empty inputs and the stalled ring's trap; the
+over j, the symmetric schedule (against the plain version and the general
+schedule, at every block side), bit-equal launches, empty inputs and the
+stalled ring's trap; the
 CRF's exact, Nystrom and general-loop branches on the card against the
 CPU; K7 at ragged chunks against K2's rows, K9 at odd S, K8 and the
 exact CRF on the distinct slots of a padded state against the full
@@ -345,6 +347,117 @@ def _plan(fi, fj, c):
     return bilateral.matmul_plan(fi.shape[0], fj.shape[0], c, sms)
 
 
+def _sym_plan(f, c):
+    sms = torch.cuda.get_device_properties(f.device).multi_processor_count
+    return bilateral.symmetric_plan(f.shape[0], c, sms)
+
+
+def _sym_inputs(gen, n, c):
+    """The exact CRF's features at ``n`` pixels (the photo-like scene's
+    first n, or clustered colours below 4097) and values as it passes them:
+    ones for the degree, two variants' probabilities for a message."""
+    if n >= 4097:
+        f = _photo_features(gen)[:n]
+    else:
+        f = _feats(gen, n)
+        f[:, 2:] = (f[:, 2:] / 8).round() * 8 + 0.3 * _randn(gen, n, 3)
+    if c == 1:
+        return f, torch.ones((n, 1), device=gen.device)
+    return f, torch.softmax(_randn(gen, n, 2, c // 2), -1).reshape(n, c)
+
+
+@pytest.mark.parametrize("c", [1, 6, 12, 58])
+@pytest.mark.parametrize("n", [500, 4097, 36864])
+def test_kernel_matmul_symmetric_matches_plain(cuda, n, c):
+    """K8 without ``features_j`` (the exact CRF's call) against its plain
+    version at N = 500, 4097 (no multiple of the row tile or the stage)
+    and the cell's 36864, for the degree (C = 1), messages at wgmma n = 8
+    and 16 (C = 6, 12: the symmetric schedule) and C = 58 (n = 64: the
+    general schedule, where the J-side sums would outgrow a block). At
+    36864 the plain version checks 2048 rows, the first and the last
+    1024. Both round k to bf16, so a k code may flip where the exponent's
+    rounding differs: one bf16 ulp of one term, bounded by 5e-3 of the
+    largest output."""
+    from pnp_ovss_tpu_torch.utils.tracing import TRACER
+
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    f, vals = _sym_inputs(gen, n, c)
+    TRACER.drain()
+    TRACER.enable()
+    try:
+        out = _matmul_rows_vs_plain(f, vals)
+        counted = TRACER.drain()["counters"]
+    finally:
+        TRACER.disable()
+    symmetric = c <= 16
+    assert counted == ({"crf.k8_symmetric_launches": 1} if symmetric
+                       else {})
+    assert out <= 5e-3, out
+
+
+def _matmul_rows_vs_plain(f, vals, fj=None):
+    """As ``_matmul_vs_plain``, on the first and last 1024 rows where N
+    is above 4097 (the plain version at N x N takes seconds)."""
+    n = f.shape[0]
+    if n <= 4097:
+        return _matmul_vs_plain(f, vals, fj)
+    out = bilateral.gaussian_kernel_matmul(f, vals, fj)
+    rows = torch.cat([torch.arange(1024), torch.arange(n - 1024, n)]) \
+        .to(f.device)
+    ref = bilateral.kernel_matmul_plain(f[rows], vals,
+                                        f if fj is None else fj)
+    return ((out[rows] - ref).abs().max() / ref.abs().max()).item()
+
+
+@pytest.mark.parametrize("c", [1, 6, 12])
+@pytest.mark.parametrize("n", [500, 4097, 36864])
+def test_kernel_matmul_symmetric_matches_general(cuda, n, c):
+    """The symmetric schedule against the general one forced by
+    ``features_j=features`` on the same inputs. The k codes are the same
+    bits (f_j - f_i is the exact negation of f_i - f_j, the squares sum in
+    the same order), so only the order of the f32 sums differs: held to
+    1e-5 of the largest output (the non-negative terms' sums each carry a
+    few hundred roundings of 2^-24 at most)."""
+    gen = torch.Generator(device=cuda).manual_seed(18)
+    f, vals = _sym_inputs(gen, n, c)
+    sym = bilateral.kernel_matmul_fn(f)
+    gen_fn = bilateral.kernel_matmul_fn(f, f)
+    a, b = sym(vals), gen_fn(vals)
+    assert sym.bufs[c].unit_tiles > 0 and gen_fn.bufs[c].unit_tiles == 0
+    err = ((a - b).abs().max() / b.abs().max()).item()
+    print(f"N={n} C={c}: symmetric vs general {err:.3g}")
+    assert err <= 1e-5, err
+
+
+@pytest.mark.parametrize("n,unit_tiles", [(4097, 8), (4097, 2),
+                                          (36824, 8), (36824, 3)])
+def test_kernel_matmul_symmetric_at_every_block_size(cuda, n, unit_tiles):
+    """The symmetric schedule at block sides the plan would not pick (the
+    last block partial; one block of 5 row tiles' worth; a side of 3 that
+    divides nothing), through its C entry, against the plain version at
+    C = 12: the units, the diagonal tiles, the J-side sums and the block
+    partials are right whatever the side."""
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    f, vals = _sym_inputs(gen, n, 12)
+    plan = _sym_plan(f, 12)
+    row_tiles = -(-n // 128)
+    blocks = -(-row_tiles // unit_tiles)
+    plan = plan._replace(unit_tiles=unit_tiles, blocks=blocks,
+                         units=blocks * (blocks + 1) // 2,
+                         ws_floats=row_tiles * blocks * 128 * plan.width)
+    bufs = bilateral.symmetric_bufs(n, 12, cuda, plan)
+    lib = _build.library("crf_matmul")
+    rc, out = bilateral.launch_matmul_symmetric(
+        lib.gaussian_kernel_matmul_symmetric, bilateral.pack_features(f), 5,
+        vals, _build.stream_ptr(f), bufs)
+    _build.check(lib, rc, "gaussian_kernel_matmul_symmetric")
+    rows = torch.arange(0, n, 7, device=cuda)[:2048]
+    ref = bilateral.kernel_matmul_plain(f[rows], vals, f)
+    err = ((out[rows] - ref).abs().max() / ref.abs().max()).item()
+    assert err <= 5e-3, err
+    assert not bufs.counters.any()  # left 0 for the next launch
+
+
 @pytest.mark.parametrize("n,m,c,view,scene", [
     (1000, None, 1, False, "clustered"), (1000, None, 58, False, "clustered"),
     (777, 130, 82, False, "clustered"), (130, 777, 58, True, "clustered"),
@@ -422,14 +535,17 @@ def test_kernel_matmul_on_distinct_rows_equals_the_full_launch(cuda, a,
                                                                width):
     """At the exact CRF's shape (N = M = 36864), K8 on the first ``a``
     slots of each variant of a 2 x 29-slot state, read through a strided
-    [M, 2, a] view, runs at wgmma n = 8 or 16 and is bit-equal to the same
-    columns of the 58-channel launch at n = 64: the columns are summed
-    independently and the j split does not depend on C."""
+    [M, 2, a] view, runs at wgmma n = 8 or 16. On the general schedule
+    (``features_j`` given) it is bit-equal to the same columns of the
+    58-channel launch at n = 64: the columns are summed independently and
+    the j split does not depend on C. On the symmetric schedule (the
+    exact CRF's call) the strided view gives the bits of its contiguous
+    copy: the gather rides in the copy into v^T."""
     gen = torch.Generator(device=cuda).manual_seed(16)
     feats = _photo_features(gen)
     n = feats.shape[0]
     state = torch.softmax(_randn(gen, 2, 29, n), 1)
-    fn = bilateral.kernel_matmul_fn(feats)
+    fn = bilateral.kernel_matmul_fn(feats, feats)
     full = fn(state.reshape(58, n).t())
     before = _build.LAUNCHES["gaussian_kernel_matmul"]
     rows = fn(state[:, :a].movedim(-1, 0))
@@ -438,6 +554,11 @@ def test_kernel_matmul_on_distinct_rows_equals_the_full_launch(cuda, a,
     assert fn.bufs[58].split == fn.bufs[2 * a].split
     assert torch.equal(rows, full.reshape(n, 2, 29)[:, :, :a]
                        .reshape(n, 2 * a))
+    sym = bilateral.kernel_matmul_fn(feats)
+    view = state[:, :a].movedim(-1, 0)
+    rows = sym(view)
+    assert sym.bufs[2 * a].width == width and sym.bufs[2 * a].unit_tiles > 0
+    assert torch.equal(rows, sym(view.contiguous()))
 
 
 def test_kernel_matmul_degree_runs_n8(cuda):
@@ -468,21 +589,29 @@ def test_kernel_matmul_eight_features(cuda, f):
     assert _matmul_vs_plain(fi, _randn(gen, 1300, 58), fj) <= 5e-3
 
 
-def test_kernel_matmul_is_deterministic(cuda):
+@pytest.mark.parametrize("rows,cols,c", [
+    ("anchors", "pixels", 58), ("pixels", None, 58), ("pixels", None, 1),
+    (500, 300, 58), (4097, None, 6), (36863, None, 12), (500, None, 12)])
+def test_kernel_matmul_is_deterministic(cuda, rows, cols, c):
     """Two launches on the same inputs, at shapes with and without a
-    split over j, are bit-equal (the partials are summed in a fixed
-    order; no float atomics)."""
+    split over j and on the symmetric schedule at odd N (the exact CRF's
+    C = 6 and 12 at N = 4097, 36863 and 500), are bit-equal (the partials
+    are summed in a fixed order; no float atomics)."""
     gen = torch.Generator(device=cuda).manual_seed(14)
     feats = _photo_features(gen)
-    anchors = feats.reshape(192, 192, 5)[::4, ::4].reshape(-1, 5)
-    for fi, fj, c in ((anchors, feats, 58), (feats, None, 58),
-                      (feats, None, 1), (feats[:500], feats[:300], 58)):
-        fn = bilateral.kernel_matmul_fn(fi, fj)
-        vals = torch.rand(((fi if fj is None else fj).shape[0], c),
-                          generator=gen, device=cuda)
-        a, b = fn(vals), fn(vals)
-        assert torch.equal(a, b)
-        assert torch.equal(a, bilateral.gaussian_kernel_matmul(fi, vals, fj))
+    sides = {"pixels": feats,
+             "anchors": feats.reshape(192, 192, 5)[::4, ::4].reshape(-1, 5)}
+    fi = sides[rows] if isinstance(rows, str) else feats[:rows]
+    fj = (sides[cols] if isinstance(cols, str) else feats[:cols]) \
+        if cols is not None else None
+    fn = bilateral.kernel_matmul_fn(fi, fj)
+    vals = torch.rand(((fi if fj is None else fj).shape[0], c),
+                      generator=gen, device=cuda)
+    a, b = fn(vals), fn(vals)
+    assert fn.bufs[c].unit_tiles == (0 if fj is not None or c > 16 else
+                                     _sym_plan(fi, c).unit_tiles)
+    assert torch.equal(a, b)
+    assert torch.equal(a, bilateral.gaussian_kernel_matmul(fi, vals, fj))
 
 
 def test_kernel_matmul_stalled_ring_traps(cuda):
@@ -849,11 +978,13 @@ def test_general_loop_crf_on_card_matches_cpu(cuda, size, c):
 def test_exact_crf_on_distinct_slots_on_card(cuda, monkeypatch):
     """The exact CRF at the bucket's 192 x 192 with 2 x 29 slots, 4 of them
     live, with and without ``channel_valid``: each iteration's K8 message
-    on the distinct slots is bit-equal to the 58-row message of the same
-    state; the f32 band product of the spatial message sums in an order
-    cuBLAS may choose by its batch count, so it is held to 1e-6 of the
-    largest; the labels are equal. The keyword adds no synchronisation
-    with the host (the sync debug mode raises on one) and no K8 launch."""
+    on the distinct slots (10 rows: the symmetric schedule) equals the
+    58-row message of the same state (the general schedule) up to the
+    order of its f32 sums, held to 1e-5 of the largest; the f32 band
+    product of the spatial message sums in an order cuBLAS may choose by
+    its batch count, so it is held to 1e-6 of the largest; the labels are
+    equal. The keyword adds no synchronisation with the host (the sync
+    debug mode raises on one) and no K8 launch."""
     logits, image = _crf_scene(17, 192, 29, 12)
     valid = np.arange(29) < 4
     logits[:, ~torch.from_numpy(valid)] = -1e30
@@ -885,20 +1016,17 @@ def test_exact_crf_on_distinct_slots_on_card(cuda, monkeypatch):
         runs["distinct"]
     assert k8_all == k8_part == CRFConfig().num_iters + 1
     assert len(part) == 2 * CRFConfig().num_iters
-    sp_err, state_err = 0.0, 0.0
+    err, state_err = [0.0, 0.0], 0.0  # bilateral, spatial
     for i, ((fn, q, norm, out), (_, q_all, _, _)) in enumerate(
             zip(part, full)):
         assert q.shape == (58, 192 * 192)
         ref = real(full[i % 2][0], q, norm)
-        if i % 2 == 0:
-            assert torch.equal(out, ref), i
-        else:
-            sp_err = max(sp_err, ((out - ref).abs().max()
-                                  / ref.abs().max()).item())
+        err[i % 2] = max(err[i % 2], ((out - ref).abs().max()
+                                      / ref.abs().max()).item())
         state_err = max(state_err, (q - q_all).abs().max().item())
-    print(f"spatial message max rel err {sp_err:.3g}, state max abs "
-          f"diff {state_err:.3g}")
-    assert sp_err <= 1e-6
+    print(f"bilateral message max rel err {err[0]:.3g}, spatial {err[1]:.3g}"
+          f", state max abs diff {state_err:.3g}")
+    assert err[0] <= 1e-5 and err[1] <= 1e-6
     assert torch.equal(got, want)
 
 

@@ -145,7 +145,9 @@ def test_traced_batch_gives_the_span_tree_and_the_same_outputs(results):
     if prun.cfg.postprocess.bilateral_subsample == 1:
         messages = 2 * prun.cfg.postprocess.crf.num_iters
         counters.update({"crf.rows": messages * 2 * 5 * B,
-                         "crf.rows_run": messages * 2 * (4 + 3 + 5 + 3)})
+                         "crf.rows_run": messages * 2 * (4 + 3 + 5 + 3),
+                         "crf.k8_symmetric_launches":
+                         (prun.cfg.postprocess.crf.num_iters + 1) * B})
     else:
         counters["crf.spatial_launches"] = \
             prun.cfg.postprocess.crf.num_iters * B
