@@ -29,8 +29,8 @@
 //      (wgmma_gemm.cuh) over that scratch, M = B*S, N = Dm, K = H*D, the
 //      f32 sum in k16 steps from k = 0 up as cuBLAS takes it, so the fused
 //      block equals the sequence-parallel block's x + (F.linear(out, Wp)
-//      + bp); the consumers stage bf16(acc), and the epilogue warps add
-//      bp, round, add x, round.
+//      + bp); on the GEMM's cooperative schedule the consumers stage
+//      bf16(acc), and the epilogue warps add bp, round, add x, round.
 // The head outputs make one round trip through device memory (2 x 56.6 MB
 // at 768 px, 0.034 ms at 3.35 TB/s), the trade K3 makes for its hidden.
 
@@ -48,6 +48,7 @@ namespace k4 {
 // proj alone at 768 px: 0.161 / 0.138 / 0.209 ms with 2 / 4 / 8 rows,
 // kernel_ablation.py).
 struct ProjResidual {
+  static constexpr bool kPingPong = false;
   static constexpr bool kStageBias = false;
   static constexpr int kRows = 4;
   static __device__ __forceinline__ uint4 load(

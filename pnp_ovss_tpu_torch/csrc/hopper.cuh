@@ -330,8 +330,8 @@ PNP_WGMMA_RS(96, 48, 48, 49, 50, 51, 52, 53)
 PNP_WGMMA_RS(128, 64, 64, 65, 66, 67, 68, 69)
 
 // d (64 x W, f32) += A (64 x 16, bf16 smem descriptor) * B (16 x W, bf16
-// smem descriptor), both K-major (desc_sw128), for W in {8, 16}; d = A * B
-// alone where `acc` is 0. d's layout as wgmma_rs's.
+// smem descriptor), both K-major (desc_sw128), for W in {8, 16, 128}; d =
+// A * B alone where `acc` is 0. d's layout as wgmma_rs's.
 template <int W>
 __device__ __forceinline__ void wgmma_ss(float (&d)[W / 2], uint64_t da,
                                          uint64_t db, int acc = 1);
@@ -351,6 +351,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[W / 2], uint64_t da,
   }
 PNP_WGMMA_SS(8, 4, 4, 5, 6)
 PNP_WGMMA_SS(16, 8, 8, 9, 10)
+PNP_WGMMA_SS(128, 64, 64, 65, 66)
 #undef PNP_WGMMA_SS
 #undef PNP_WGMMA_RS
 #undef PNP_WGMMA_RS_TB

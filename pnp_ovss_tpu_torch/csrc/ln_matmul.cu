@@ -20,9 +20,10 @@
 // ~700 (PERF.md). So one call runs two kernels on the caller's buffers
 // (wgmma_gemm.cuh, shared with K3 and K4):
 //   1. the row LayerNorm, x -> xn (bf16), one warp per row;
-//   2. the persistent wgmma + TMA GEMM xn @ W^T, whose consumers stage
-//      y = bf16(acc + b) in shared memory; the epilogue warps only copy
-//      the staged tile out with 16-byte stores.
+//   2. the persistent wgmma + TMA GEMM xn @ W^T on its cooperative
+//      schedule (128 x 256 tiles), whose consumers stage y = bf16(acc +
+//      b) in shared memory; the epilogue warps only copy the staged tile
+//      out with 16-byte stores.
 // xn makes one round trip through device memory (2 * M * D * 2 bytes,
 // 0.019 / 0.034 ms at 3.35 TB/s), the trade K3 makes for its hidden. The
 // output keeps its row-major [M, N] layout and 16-byte rows, so K2 and K4
@@ -37,6 +38,7 @@ namespace k1 {
 
 // y = bf16(acc + b) staged and stored as it is.
 struct Bias {
+  static constexpr bool kPingPong = false;
   static constexpr bool kStageBias = true;
   static constexpr int kRows = 2;
   static __device__ __forceinline__ uint4 load(const __nv_bfloat16*,

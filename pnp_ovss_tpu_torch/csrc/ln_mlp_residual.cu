@@ -29,12 +29,22 @@
 //   2. fc1, xn @ W1^T, with the epilogue + b1, round, gelu -> g (bf16);
 //   3. fc2, g @ W2^T, with the epilogue + b2, round, + x, round -> y.
 // Both products are the shared persistent wgmma + TMA GEMM
-// (wgmma_gemm.cuh), with the row LayerNorm kernel from the same header:
-// the consumers stage y = bf16(acc + bias) of each 128 x 256 tile in
-// shared memory, and three epilogue warps turn it into fc1's gelu (~40
-// dependent f32 steps a value) or fc2's residual while the tensor cores
-// run the next tile. D % 8 == 0 up to 1024 (the LayerNorm's widest row),
-// F % 8 == 0, any M >= 1.
+// (wgmma_gemm.cuh), with the row LayerNorm kernel from the same header,
+// on its two schedules:
+// - fc1 (Fc1Gelu) on the ping-pong schedule: the two consumer warpgroups
+//   own 128 x 128 tiles in turn, and while one issues its products the
+//   other computes gelu(bf16(acc + b1)) in registers (~40 dependent f32
+//   steps a value) and stages it; the epilogue warps only copy it out.
+//   In the cooperative schedule's three epilogue warps the gelu held fc1
+//   at 40% of its products' bound (fc2: 66%); here fc1 runs at ~51%, the
+//   card's power limit reached (PERF.md);
+// - fc2 (Fc2Residual) on the cooperative schedule: both warpgroups on
+//   each 128 x 256 tile stage y = bf16(acc + b2) in shared memory, and
+//   three epilogue warps add the residual while the tensor cores run the
+//   next tile.
+// g is bit for bit what the cooperative schedule gives (the same k16
+// sums, the same roundings). D % 8 == 0 up to 1024 (the LayerNorm's
+// widest row), F % 8 == 0, any M >= 1.
 
 #include "wgmma_gemm.cuh"
 
@@ -49,25 +59,48 @@ __constant__ float kErfP[10] = {
     0.00010732167832988502, -1.0523825720237124e-05,
     6.793275336392753e-07,  -2.1076366182700845e-08};
 
-// gelu of a bf16 value y (held in f32), rounded to bf16 after every step
-// as the reference's bf16 arithmetic does; no contraction into FMAs. The
-// reference divides by bf16(sqrt(2)) = 181/128. An exact quotient y * 128
-// / 181 of a bf16 y never lies on or within 2^-17 (relative) of a bf16
-// rounding midpoint, so rounding the f32 product with the f32 reciprocal
-// gives the same bf16 value as rounding the quotient (checked on every
-// finite bf16 code); and e + 1 halved is exact in bf16.
-__device__ __forceinline__ float gelu_bf16(float y) {
+// The two bf16 values of r (low half first) in f32: a shift and a mask,
+// two instructions fewer than unpack_bf16x2's intrinsic.
+__device__ __forceinline__ float2 halves(uint32_t r) {
+  return make_float2(__uint_as_float(r << 16),
+                     __uint_as_float(r & 0xffff0000u));
+}
+
+// bf16(a), bf16(b) held in f32: one cvt.rn.bf16x2.f32 for the pair.
+__device__ __forceinline__ float2 round_bf16x2(float a, float b) {
+  return halves(pnp::pack_bf16x2(a, b));
+}
+
+// gelu of the two bf16 values of y2, packed as bf16x2 as they are. Each
+// value is rounded to bf16 after every step as the reference's bf16
+// arithmetic does, one conversion a step for the pair; no contraction
+// into FMAs. The reference divides by bf16(sqrt(2)) = 181/128. An exact
+// quotient y * 128 / 181 of a bf16 y never lies on or within 2^-17
+// (relative) of a bf16 rounding midpoint, so rounding the f32 product
+// with the f32 reciprocal gives the same bf16 value as rounding the
+// quotient (checked on every finite bf16 code); and e + 1 halved is
+// exact in bf16.
+__device__ __forceinline__ uint32_t gelu_bf16x2(uint32_t y2) {
+  const float2 y = halves(y2);
   const float inv_sqrt2 = 1.0f / 1.4140625f;  // 1 / bf16(sqrt(2)), in f32
-  const float tt = pnp::round_bf16(__fmul_rn(y, inv_sqrt2));
-  const float xc = fminf(fmaxf(tt, -2.2f), 2.2f);
-  const float x2 = __fmul_rn(xc, xc);
-  float p = kErfP[9];
+  const float2 tt = round_bf16x2(__fmul_rn(y.x, inv_sqrt2),
+                                 __fmul_rn(y.y, inv_sqrt2));
+  const float xc[2] = {fminf(fmaxf(tt.x, -2.2f), 2.2f),
+                       fminf(fmaxf(tt.y, -2.2f), 2.2f)};
+  float p[2];
 #pragma unroll
-  for (int i = 8; i >= 0; --i)
-    p = __fadd_rn(__fmul_rn(p, x2), kErfP[i]);
-  const float e = pnp::round_bf16(__fmul_rn(xc, p));
-  const float half = __fmul_rn(pnp::round_bf16(__fadd_rn(e, 1.f)), 0.5f);
-  return pnp::round_bf16(__fmul_rn(y, half));
+  for (int v = 0; v < 2; ++v) {
+    const float x2 = __fmul_rn(xc[v], xc[v]);
+    p[v] = kErfP[9];
+#pragma unroll
+    for (int i = 8; i >= 0; --i)
+      p[v] = __fadd_rn(__fmul_rn(p[v], x2), kErfP[i]);
+  }
+  const float2 e = round_bf16x2(__fmul_rn(xc[0], p[0]),
+                                __fmul_rn(xc[1], p[1]));
+  const float2 e1 = round_bf16x2(__fadd_rn(e.x, 1.f), __fadd_rn(e.y, 1.f));
+  return pnp::pack_bf16x2(__fmul_rn(y.x, __fmul_rn(e1.x, 0.5f)),
+                          __fmul_rn(y.y, __fmul_rn(e1.y, 0.5f)));
 }
 
 }  // namespace
@@ -77,10 +110,16 @@ __device__ __forceinline__ float gelu_bf16(float y) {
 namespace pnp {
 namespace k3 {
 
-// fc1: y = bf16(acc + b1) staged, gelu(y) stored.
+// fc1: gelu(bf16(acc + b1)) stored, on the ping-pong schedule: the
+// consumers apply act in registers (apply does the same in the epilogue
+// warps, should the cooperative schedule run it).
 struct Fc1Gelu {
+  static constexpr bool kPingPong = true;
   static constexpr bool kStageBias = true;
   static constexpr int kRows = 2;
+  static __device__ __forceinline__ uint32_t act(uint32_t y) {
+    return gelu_bf16x2(y);
+  }
   static __device__ __forceinline__ uint4 load(const __nv_bfloat16*,
                                                long long) {
     return make_uint4(0, 0, 0, 0);
@@ -90,16 +129,14 @@ struct Fc1Gelu {
     const uint32_t y[4] = {yv.x, yv.y, yv.z, yv.w};
     uint32_t o[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = pnp::unpack_bf16x2(y[i]);
-      o[i] = pnp::pack_bf16x2(gelu_bf16(f.x), gelu_bf16(f.y));
-    }
+    for (int i = 0; i < 4; ++i) o[i] = act(y[i]);
     return make_uint4(o[0], o[1], o[2], o[3]);
   }
 };
 
 // fc2: y = bf16(acc + b2) staged, bf16(resid + y) stored.
 struct Fc2Residual {
+  static constexpr bool kPingPong = false;
   static constexpr bool kStageBias = true;
   static constexpr int kRows = 2;
   static __device__ __forceinline__ uint4 load(

@@ -9,40 +9,59 @@
 //
 // gemm: out[M, N] = Epi(A[M, K] @ B[N, K]^T), A and B bf16 and K-major
 // (B in nn.Linear layout), f32 sums in k16 steps from k = 0 up, never
-// split. A persistent grid of one block per SM walks 128 x 256 output
-// tiles (N fastest, so concurrent tiles share their A rows in L2), with
-// three roles in warpgroups:
-// - one producer thread feeds a 3-stage ring of 64-deep A and B tiles by
-//   TMA (2-D tensor maps, 128-byte swizzle, mbarrier transaction counts)
-//   and runs ahead into the next tile;
-// - two consumer warpgroups each run wgmma m64n256k16 on 64 rows of the
-//   tile (128 f32 accumulators a thread), keeping one k-step of products
-//   in flight and releasing each stage when its products are done, then
-//   stage y = bf16(acc + bias) (or bf16(acc), as the epilogue asks) in
-//   shared memory and go on to the next tile;
-// - three epilogue warps turn the staged tile into the output through the
-//   epilogue type, with coalesced 16-byte stores, while the tensor cores
-//   run the next tile.
-// Storing straight from the accumulators, with the tensor cores idle
-// meanwhile, took 45% of K3's call (kernel_ablation.py's no_epilogue,
-// PERF.md). setmaxnreg moves registers from the producer's and the
-// epilogue's warpgroup (56) to the consumers (224). TMA zero-fills the M,
-// N and K tails, so M is any value >= 1; the epilogue stores only rows
-// < M and columns < N. N and K must be multiples of 8 (16-byte rows and
-// stores).
+// split. A persistent grid of one block per SM walks 128-row output tiles
+// (N fastest, so concurrent tiles share their A rows in L2), with three
+// roles in warpgroups:
+// - one producer thread feeds a ring of 64-deep A and B tiles by TMA
+//   (2-D tensor maps, 128-byte swizzle, mbarrier transaction counts) and
+//   runs ahead into the next tile;
+// - two consumer warpgroups run the products (128 f32 accumulators a
+//   thread), keeping one k-step of products in flight and releasing each
+//   stage when its products are done, and stage the bf16 tile in shared
+//   memory;
+// - three epilogue warps turn the staged tile into the output with
+//   coalesced 16-byte stores, while the tensor cores run the next tile.
+// The epilogue type picks one of two schedules (its kPingPong):
+// - cooperative (K1's bias, K3's fc2 + residual, K4's proj + residual):
+//   128 x 256 tiles, both consumer warpgroups on each (wgmma m64n256k16
+//   on 64 rows each), a 3-stage ring of 48 KB; the consumers stage
+//   y = bf16(acc + bias) (or bf16(acc), as the epilogue asks) and the
+//   epilogue warps apply the epilogue to it. Storing straight from the
+//   accumulators, with the tensor cores idle meanwhile, took 45% of K3's
+//   call (kernel_ablation.py's no_epilogue, PERF.md).
+// - ping-pong (K3's fc1 + gelu): each consumer warpgroup owns whole
+//   128 x 128 tiles in turn (two wgmma m64n128k16 a k16 step), a 4-stage
+//   ring of 32 KB; named barriers make the two take turns to issue their
+//   tile's products, so while one runs on the tensor cores the other
+//   applies act to bf16(acc + bias) in registers and stages the result in
+//   its own staged tile, which the epilogue warps copy out as it is. The
+//   gelu (~40 dependent f32 steps a value) then runs on the consumers
+//   beside the other warpgroup's products, not on the epilogue warps,
+//   which held fc1 at 40% of its bound. K1's bias ran 4% slower on this
+//   schedule: the 128 x 128 tile reads 4/3 the operand bytes a product
+//   (PERF.md).
+// setmaxnreg moves registers from the producer's and the epilogue's
+// warpgroup (56) to the consumers (224). TMA zero-fills the M, N and K
+// tails, so M is any value >= 1; the epilogue stores only rows < M and
+// columns < N. N and K must be multiples of 8 (16-byte rows and stores).
 //
 // An epilogue is a type with static members only; the kernel passes it
 // its own __restrict__ pointers, so that the epilogue warps' loads of one
 // row may run ahead of their stores to another:
+//   static constexpr bool kPingPong;   // the ping-pong schedule if true
 //   static constexpr bool kStageBias;  // stage bf16(acc + bias) if true,
 //                                      // else bf16(acc)
 //   static constexpr int kRows;  // rows a thread loads before it stores
 //   // what apply reads of the residual for the 8 columns at `off`
 //   static __device__ uint4 load(const __nv_bfloat16* resid, long long off);
 //   // the 8 values stored from the 8 staged values y of columns
-//   // col .. col + 7 and what load returned
+//   // col .. col + 7 and what load returned (cooperative schedule)
 //   static __device__ uint4 apply(uint4 y, uint4 in,
 //                                 const __nv_bfloat16* bias, int col);
+//   // ping-pong schedule: the two values stored (bf16x2) for two
+//   // neighbouring staged values (bf16x2), applied by the consumers;
+//   // nothing else is applied
+//   static __device__ uint32_t act(uint32_t y);
 #pragma once
 
 #include <dlfcn.h>
@@ -55,30 +74,42 @@
 namespace pnp {
 namespace gemm {
 
-constexpr int kBM = 128;  // two consumer warpgroups of 64 rows
-constexpr int kBN = 256;
+constexpr int kBM = 128;  // rows of a tile
 constexpr int kBK = 64;   // 128 bytes of bf16: one swizzle row
-constexpr int kStages = 3;
-// Warpgroups 0 and 1 consume (wgmma m64n256: 128 accumulators a thread,
-// so the block can have no more than 384 threads); in warpgroup 2 one
-// thread produces (TMA) and warps 1-3 run the epilogue. Registers a thread
-// after setmaxnreg: the 384 threads start at 168 and the two counts below
-// stay within the same 64512.
+// Warpgroups 0 and 1 consume (128 accumulators a thread, so the block can
+// have no more than 384 threads); in warpgroup 2 one thread produces
+// (TMA) and warps 1-3 run the epilogue. Registers a thread after
+// setmaxnreg: the 384 threads start at 168 and the two counts below stay
+// within the same 64512.
 constexpr int kThreads = 384;
 constexpr int kEpilogueThreads = 96;
 constexpr int kConsumerRegs = 224, kSideRegs = 56;
 static_assert(2 * kConsumerRegs + kSideRegs <= 3 * 168,
               "register counts must fit the block's allocation");
 constexpr int kATile = kBM * kBK * 2;
-constexpr int kBTile = kBN * kBK * 2;
-constexpr int kStageBytes = kATile + kBTile;
-// The staged [128, 256] bf16 tile; rows padded by 16 bytes so that the
-// consumers' 4-byte stores and the epilogue's 16-byte loads hit distinct
-// banks.
-constexpr int kLdY = kBN + 8;
-constexpr int kYBytes = kBM * kLdY * 2;
-constexpr size_t kSmemBytes =
-    size_t(kStages) * kStageBytes + kYBytes + 1024 + 256;
+
+// A schedule's tile, ring and staged tiles (see the top of the file).
+template <bool kPingPong>
+struct Schedule {
+  static constexpr int kBN = kPingPong ? 128 : 256;  // columns of a tile
+  static constexpr int kStages = kPingPong ? 4 : 3;
+  static constexpr int kStageBytes = kATile + kBN * kBK * 2;
+  // A stage is released by the warps that read it: the one warpgroup
+  // that owns the tile, or both.
+  static constexpr int kStageReaders = kPingPong ? 4 : 8;
+  // Staged tiles: one a consumer warpgroup, or one shared; each written
+  // by that many threads.
+  static constexpr int kYBufs = kPingPong ? 2 : 1;
+  static constexpr int kStagers = kPingPong ? 128 : 256;
+  // A staged [128, kBN] bf16 tile; rows padded by 16 bytes so that the
+  // consumers' 4-byte stores and the epilogue's 16-byte loads hit
+  // distinct banks.
+  static constexpr int kLdY = kBN + 8;
+  static constexpr int kYBytes = kBM * kLdY * 2;
+  static constexpr size_t kSmemBytes = size_t(kStages) * kStageBytes +
+                                       size_t(kYBufs) * kYBytes + 1024 + 256;
+  static_assert(kSmemBytes <= 232448, "a block has at most 227 KB");
+};
 
 constexpr int kMaxLnWidth = 1024;
 
@@ -138,7 +169,42 @@ __global__ void __launch_bounds__(256) layer_norm_kernel(
   }
 }
 
-// A and B through their tensor maps (boxes of 64 x 128 and 64 x 256,
+// y = bf16(acc + bias) (or bf16(acc), as the epilogue asks) of a
+// warpgroup's 64 x W accumulators (wgmma's fragment layout) into rows
+// row0 .. row0 + 63 of a staged tile with rows of kLd values, columns n0
+// .. n0 + W - 1 of the output; on the ping-pong schedule act(y) in its
+// place.
+template <class Epi, int W, int kLd>
+__device__ __forceinline__ void stage_rows(const float (&acc)[W / 2],
+                                           __nv_bfloat16* ys, int row0,
+                                           const __nv_bfloat16* bias, int n0,
+                                           int N) {
+  const int lane = threadIdx.x % 32;
+  const int row = row0 + (threadIdx.x % 128) / 32 * 16 + lane / 4;
+  const int t = lane % 4;
+#pragma unroll
+  for (int j = 0; j < W / 8; ++j) {
+    const int col = j * 8 + 2 * t;
+    float2 bb = make_float2(0.f, 0.f);
+    if constexpr (Epi::kStageBias) {
+      if (n0 + col < N)
+        bb = unpack_bf16x2(*reinterpret_cast<const uint32_t*>(bias + n0 + col));
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      uint32_t y;
+      if constexpr (Epi::kStageBias)
+        y = pack_bf16x2(acc[4 * j + 2 * r] + bb.x,
+                        acc[4 * j + 2 * r + 1] + bb.y);
+      else
+        y = pack_bf16x2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+      if constexpr (Epi::kPingPong) y = Epi::act(y);
+      *reinterpret_cast<uint32_t*>(ys + (row + 8 * r) * kLd + col) = y;
+    }
+  }
+}
+
+// A and B through their tensor maps (boxes of 64 x 128 and 64 x kBN,
 // 128-byte swizzle).
 template <class Epi>
 __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(
@@ -147,34 +213,38 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(
     const __nv_bfloat16* __restrict__ bias,
     const __nv_bfloat16* __restrict__ resid, __nv_bfloat16* __restrict__ out,
     int M, int N, int K) {
+  using S = Schedule<Epi::kPingPong>;
   extern __shared__ unsigned char smem_raw[];
   // Tiles on a 1024-byte boundary (the swizzle's period), then the staged
-  // tile, then the barriers.
+  // tiles, then the barriers.
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   __nv_bfloat16* ys =
-      reinterpret_cast<__nv_bfloat16*>(smem + kStages * kStageBytes);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes +
-                                               kYBytes);
-  uint64_t* empty = full + kStages;
-  uint64_t* y_full = empty + kStages;  // the staged tile is written
-  uint64_t* y_empty = y_full + 1;      // ... and read out again
-  auto a_tile = [&](int s) { return smem + s * kStageBytes; };
-  auto b_tile = [&](int s) { return smem + s * kStageBytes + kATile; };
+      reinterpret_cast<__nv_bfloat16*>(smem + S::kStages * S::kStageBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      smem + S::kStages * S::kStageBytes + S::kYBufs * S::kYBytes);
+  uint64_t* empty = full + S::kStages;
+  uint64_t* y_full = empty + S::kStages;  // a staged tile is written
+  uint64_t* y_empty = y_full + S::kYBufs;  // ... and read out again
+  auto a_tile = [&](int s) { return smem + s * S::kStageBytes; };
+  auto b_tile = [&](int s) { return smem + s * S::kStageBytes + kATile; };
+  auto y_tile = [&](int buf) { return ys + buf * (kBM * S::kLdY); };
 
   const int wg = threadIdx.x / 128;
   const int wtid = threadIdx.x % 128;
-  const int n_tiles = (N + kBN - 1) / kBN;
+  const int n_tiles = (N + S::kBN - 1) / S::kBN;
   const int tiles = ((M + kBM - 1) / kBM) * n_tiles;
   const int k_tiles = (K + kBK - 1) / kBK;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < S::kStages; ++s) {
       hopper::mbar_init(&full[s], 1);
-      hopper::mbar_init(&empty[s], 8);  // one arrival per consumer warp
+      hopper::mbar_init(&empty[s], S::kStageReaders);  // lane 0 of each
     }
-    hopper::mbar_init(y_full, 256);  // every consumer thread
-    hopper::mbar_init(y_empty, kEpilogueThreads);  // every epilogue thread
+    for (int b = 0; b < S::kYBufs; ++b) {
+      hopper::mbar_init(&y_full[b], S::kStagers);
+      hopper::mbar_init(&y_empty[b], kEpilogueThreads);
+    }
     hopper::mbar_fence_init();
   }
   __syncthreads();
@@ -183,20 +253,22 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(
     // Warp 0 produces, warps 1-3 run the epilogue.
     hopper::setmaxnreg_dec<kSideRegs>();
     if (wtid < 32) {
-      // Producer: one thread keeps the ring full, tile after tile.
+      // Producer: one thread keeps the ring full, tile after tile (in the
+      // ping-pong schedule the two warpgroups' tiles in turn).
       if (wtid == 0) {
         int stage = 0;
         uint32_t phase = 0;
         for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-          const int m0 = (tile / n_tiles) * kBM, n0 = (tile % n_tiles) * kBN;
+          const int m0 = (tile / n_tiles) * kBM;
+          const int n0 = (tile % n_tiles) * S::kBN;
           for (int kb = 0; kb < k_tiles; ++kb) {
             hopper::mbar_wait(&empty[stage], phase ^ 1);  // the slot is free
-            hopper::mbar_expect_tx(&full[stage], kStageBytes);
+            hopper::mbar_expect_tx(&full[stage], S::kStageBytes);
             hopper::tma_load_2d(a_tile(stage), &tm_a, kb * kBK, m0,
                                 &full[stage]);
             hopper::tma_load_2d(b_tile(stage), &tm_b, kb * kBK, n0,
                                 &full[stage]);
-            if (++stage == kStages) {
+            if (++stage == S::kStages) {
               stage = 0;
               phase ^= 1;
             }
@@ -204,53 +276,61 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(
         }
       }
     } else {
-      // Epilogue: reads the staged tile 16 bytes a thread (a warp takes one
-      // row), writes out with coalesced 16-byte stores, and frees the stage
-      // while the consumers already run the next tile's products. Each
-      // thread loads what kRows rows need from device memory before it
-      // computes and stores them.
+      // Epilogue: reads the block's i-th staged tile (staged tile i %
+      // kYBufs) 16 bytes a thread, a warp taking 512 bytes of one or two
+      // rows, writes out with coalesced 16-byte stores, and frees the
+      // staged tile while the consumers already run the next tile's
+      // products. Each thread loads what kRows rows need from device
+      // memory before it computes and stores them.
       const int etid = wtid - 32;
-      uint32_t phase = 0;
-      const int chunk = etid % (kBN / 8);  // 8 columns a chunk
-      constexpr int kPass = kEpilogueThreads / (kBN / 8);  // rows a pass
-      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int m0 = (tile / n_tiles) * kBM, n0 = (tile % n_tiles) * kBN;
-        const int col = n0 + chunk * 8;
-        hopper::mbar_wait(y_full, phase);
-        for (int row = etid / (kBN / 8); row < kBM;
-             row += kPass * Epi::kRows) {
+      constexpr int kChunks = S::kBN / 8;  // 8 columns a chunk
+      constexpr int kPass = kEpilogueThreads / kChunks;  // rows a pass
+      const int chunk = etid % kChunks;
+      int i = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++i) {
+        const int m0 = (tile / n_tiles) * kBM;
+        const int col = (tile % n_tiles) * S::kBN + chunk * 8;
+        const int buf = i % S::kYBufs;
+        const __nv_bfloat16* yb = y_tile(buf);
+        hopper::mbar_wait(&y_full[buf], (i / S::kYBufs) & 1);
+        for (int row = etid / kChunks; row < kBM; row += kPass * Epi::kRows) {
           uint4 in[Epi::kRows];
+          if constexpr (!Epi::kPingPong) {
 #pragma unroll
-          for (int i = 0; i < Epi::kRows; ++i) {
-            const int grow = m0 + row + i * kPass;
-            if (row + i * kPass < kBM && grow < M && col < N)
-              in[i] = Epi::load(resid, static_cast<long long>(grow) * N + col);
+            for (int r = 0; r < Epi::kRows; ++r) {
+              const int grow = m0 + row + r * kPass;
+              if (row + r * kPass < kBM && grow < M && col < N)
+                in[r] =
+                    Epi::load(resid, static_cast<long long>(grow) * N + col);
+            }
           }
 #pragma unroll
-          for (int i = 0; i < Epi::kRows; ++i) {
-            const int r = row + i * kPass, grow = m0 + r;
-            if (r >= kBM || grow >= M || col >= N) continue;
+          for (int r = 0; r < Epi::kRows; ++r) {
+            const int yr = row + r * kPass, grow = m0 + yr;
+            if (yr >= kBM || grow >= M || col >= N) continue;
             const uint4 yv =
-                *reinterpret_cast<const uint4*>(ys + r * kLdY + chunk * 8);
-            *reinterpret_cast<uint4*>(
-                out + static_cast<long long>(grow) * N + col) =
-                Epi::apply(yv, in[i], bias, col);
+                *reinterpret_cast<const uint4*>(yb + yr * S::kLdY + chunk * 8);
+            uint4* dst = reinterpret_cast<uint4*>(
+                out + static_cast<long long>(grow) * N + col);
+            if constexpr (Epi::kPingPong)
+              *dst = yv;
+            else
+              *dst = Epi::apply(yv, in[r], bias, col);
           }
         }
-        hopper::mbar_arrive(y_empty);
-        phase ^= 1;
+        hopper::mbar_arrive(&y_empty[buf]);
       }
     }
-  } else {
-    // Consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of each tile.
+  } else if constexpr (!Epi::kPingPong) {
+    // Cooperative consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63
+    // of each tile.
     hopper::setmaxnreg_inc<kConsumerRegs>();
-    const int warp = wtid / 32, lane = wtid % 32;
-    const int g = lane / 4, t = lane % 4;
+    const int lane = wtid % 32;
     float acc[128];
     int stage = 0;
     uint32_t phase = 0, y_phase = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const int n0 = (tile % n_tiles) * kBN;
+      const int n0 = (tile % n_tiles) * S::kBN;
 #pragma unroll
       for (int i = 0; i < 128; ++i) acc[i] = 0.f;
       int prev = -1;
@@ -268,7 +348,7 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(
         hopper::wgmma_wait<1>();  // the previous k-step's products are done
         if (prev >= 0 && lane == 0) hopper::mbar_arrive(&empty[prev]);
         prev = stage;
-        if (++stage == kStages) {
+        if (++stage == S::kStages) {
           stage = 0;
           phase ^= 1;
         }
@@ -277,31 +357,73 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(
       hopper::fence_regs(acc);
       if (prev >= 0 && lane == 0) hopper::mbar_arrive(&empty[prev]);
 
-      // y = bf16(acc + bias) or bf16(acc) into the staged tile, once the
-      // epilogue has read out the last one.
+      // The staged tile, once the epilogue has read out the last one.
       hopper::mbar_wait(y_empty, y_phase ^ 1);
-      const int row = wg * 64 + warp * 16 + g;
+      stage_rows<Epi, S::kBN, S::kLdY>(acc, ys, wg * 64, bias, n0, N);
+      hopper::mbar_arrive(y_full);
+      y_phase ^= 1;
+    }
+  } else {
+    // Ping-pong consumers: warpgroup wg owns the block's tiles wg, wg + 2,
+    // ... whole (rows 0-63 and 64-127 as two m64 halves), and issues a
+    // tile's products after named barrier 1 + wg, then lets the other go;
+    // warpgroup 1 lets warpgroup 0 go first.
+    hopper::setmaxnreg_inc<kConsumerRegs>();
+    const int lane = wtid % 32;
+    if (wg == 1) hopper::bar_arrive(1, 256);
+    float acc[2][64];
+    uint32_t y_phase = 0;
+    int i = wg;
+    for (int tile = blockIdx.x + wg * gridDim.x; tile < tiles;
+         tile += 2 * gridDim.x, i += 2) {
+      const int n0 = (tile % n_tiles) * S::kBN;
 #pragma unroll
-      for (int j = 0; j < kBN / 8; ++j) {
-        const int col = j * 8 + 2 * t;
-        float2 bb = make_float2(0.f, 0.f);
-        if constexpr (Epi::kStageBias) {
-          if (n0 + col < N)
-            bb = unpack_bf16x2(
-                *reinterpret_cast<const uint32_t*>(bias + n0 + col));
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int v = 0; v < 64; ++v) acc[h][v] = 0.f;
+      // The ring's slot and phase at this tile's first k-step: the
+      // producer fills k_tiles slots a tile, the block's tiles in order.
+      const long long pos = static_cast<long long>(i) * k_tiles;
+      int stage = static_cast<int>(pos % S::kStages);
+      uint32_t phase = static_cast<uint32_t>(pos / S::kStages) & 1;
+      int prev = -1;
+      hopper::bar_sync(1 + wg, 256);
+      for (int kb = 0; kb < k_tiles; ++kb) {
+        hopper::mbar_wait(&full[stage], phase);
+        const uint64_t da0 = hopper::desc_sw128(a_tile(stage));
+        const uint64_t da1 = hopper::desc_sw128(a_tile(stage) + 64 * 128);
+        const uint64_t db = hopper::desc_sw128(b_tile(stage));
+        hopper::fence_regs(acc[0]);
+        hopper::fence_regs(acc[1]);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+          hopper::wgmma_ss<128>(acc[0], da0 + 2 * kk, db + 2 * kk);
+          hopper::wgmma_ss<128>(acc[1], da1 + 2 * kk, db + 2 * kk);
         }
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          uint32_t y;
-          if constexpr (Epi::kStageBias)
-            y = pack_bf16x2(acc[4 * j + 2 * r] + bb.x,
-                            acc[4 * j + 2 * r + 1] + bb.y);
-          else
-            y = pack_bf16x2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
-          *reinterpret_cast<uint32_t*>(ys + (row + 8 * r) * kLdY + col) = y;
+        hopper::wgmma_commit();
+        hopper::fence_regs(acc[0]);
+        hopper::fence_regs(acc[1]);
+        hopper::wgmma_wait<1>();  // the previous k-step's products are done
+        if (prev >= 0 && lane == 0) hopper::mbar_arrive(&empty[prev]);
+        prev = stage;
+        if (++stage == S::kStages) {
+          stage = 0;
+          phase ^= 1;
         }
       }
-      hopper::mbar_arrive(y_full);
+      hopper::bar_arrive(1 + (wg ^ 1), 256);  // the other's products next
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc[0]);
+      hopper::fence_regs(acc[1]);
+      if (prev >= 0 && lane == 0) hopper::mbar_arrive(&empty[prev]);
+
+      // act(y) into this warpgroup's staged tile, once the epilogue has
+      // read out its last one.
+      hopper::mbar_wait(&y_empty[wg], y_phase ^ 1);
+      stage_rows<Epi, S::kBN, S::kLdY>(acc[0], y_tile(wg), 0, bias, n0, N);
+      stage_rows<Epi, S::kBN, S::kLdY>(acc[1], y_tile(wg), 64, bias, n0, N);
+      hopper::mbar_arrive(&y_full[wg]);
       y_phase ^= 1;
     }
   }
@@ -367,9 +489,9 @@ int prepare(int* sms) {
   const bool cached = dev >= 0 && dev < kMaxDevices;
   if (cached && (*sms = ready[dev].load(std::memory_order_acquire)) > 0)
     return 0;
-  e = cudaFuncSetAttribute(gemm_kernel<Epi>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(kSmemBytes));
+  e = cudaFuncSetAttribute(
+      gemm_kernel<Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(Schedule<Epi::kPingPong>::kSmemBytes));
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -387,15 +509,16 @@ int launch_gemm(const void* a, const void* b, const void* bias,
                 cudaStream_t st) {
   if (M <= 0 || N <= 0 || K <= 0 || N % 8 != 0 || K % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  using S = Schedule<Epi::kPingPong>;
   CUtensorMap tm_a, tm_b;
   int err = make_map(&tm_a, a, M, K, kBM);
-  if (err == 0) err = make_map(&tm_b, b, N, K, kBN);
+  if (err == 0) err = make_map(&tm_b, b, N, K, S::kBN);
   int sms = 0;
   if (err == 0) err = prepare<Epi>(&sms);
   if (err != 0) return err;
-  const int tiles = ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
+  const int tiles = ((M + kBM - 1) / kBM) * ((N + S::kBN - 1) / S::kBN);
   const int grid = tiles < sms ? tiles : sms;
-  gemm_kernel<Epi><<<grid, kThreads, kSmemBytes, st>>>(
+  gemm_kernel<Epi><<<grid, kThreads, S::kSmemBytes, st>>>(
       tm_a, tm_b, static_cast<const __nv_bfloat16*>(bias),
       static_cast<const __nv_bfloat16*>(resid),
       static_cast<__nv_bfloat16*>(out), M, N, K);

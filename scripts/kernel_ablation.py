@@ -17,16 +17,25 @@ textual edit of the source or of a header it includes, into ``DIR``;
 their outputs are wrong by design and only their times are read):
 
 - K1 (two kernels a call: LayerNorm, then the wgmma GEMM with the bias
-  epilogue): ``no_ln`` runs the GEMM alone (on rows normalised
-  beforehand), ``no_ln_no_epilogue`` the GEMM alone with its epilogue
-  warps skipping their work (nothing is stored);
-- K3 (three kernels a call: LayerNorm, fc1 + gelu, fc2 + residual):
-  ``no_gelu`` stores fc1's rounded output without the gelu,
-  ``no_epilogue`` has both GEMMs' epilogue warps skip their work,
-  ``fc2_rows4`` keeps 4 rows of fc2's residual in flight in place of 2
-  (outputs right),
-  ``no_tma`` has the producer arrive on each stage without loading it (the
-  products read stale shared memory), so the wgmma loop runs alone;
+  epilogue on the cooperative schedule): ``no_ln`` runs the GEMM alone
+  (on rows normalised beforehand), ``no_ln_no_epilogue`` the GEMM alone
+  with nothing staged or stored (the consumers skip their staging, the
+  epilogue warps their work), ``pingpong`` the GEMM on the ping-pong
+  schedule (outputs right);
+- K3 (three kernels a call: LayerNorm, fc1 + gelu on the ping-pong
+  schedule, fc2 + residual on the cooperative one): ``no_gelu`` stores
+  fc1's rounded output without the gelu, ``no_epilogue`` has both GEMMs
+  stage and store nothing, ``fc2_rows4`` keeps 4 rows of fc2's residual in
+  flight in place of 2 (outputs right), ``fc1_cooperative`` runs fc1 on
+  the cooperative schedule, its gelu in the epilogue warps (outputs
+  right), ``no_tma`` has the producer arrive on each stage without
+  loading it (the products read stale shared memory), so the wgmma loop
+  runs alone, ``pp_no_mma`` has fc1's ping-pong consumers issue no
+  products (the loads and the gelu alone), ``pp_no_mma_no_tma`` no
+  loads either (the gelu alone, both warpgroups at once). K1 and K3 run
+  at the 336 px and the 768 px main path's rows
+  (M = 15470 and 27660), each call split into its kernels' times by the
+  profiler, each GEMM beside its products' bound;
 - K4 (two kernels a call: the flash kernel, then the wgmma GEMM with the
   proj + residual epilogue): ``attention_only`` and ``proj_only`` run one
   of the two (the proj on head outputs of an earlier full call);
@@ -110,8 +119,23 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 # header it includes from csrc/.
 _GEMM = "wgmma_gemm.cuh"
 _FLASH = "flash_kernel.cuh"
-_NO_EPILOGUE = (_GEMM, "for (int row = etid / (kBN / 8); row < kBM;",
-                "for (int row = kBM; row < kBM;")
+# Nothing staged or stored: the epilogue warps skip their loop, the
+# consumers (of either schedule) their staging.
+_NO_EPILOGUE = [(_GEMM, "for (int row = etid / kChunks; row < kBM;",
+                 "for (int row = kBM; row < kBM;"),
+                (_GEMM, "for (int j = 0; j < W / 8; ++j) {",
+                 "for (int j = 0; j < 0; ++j) {")]
+# The producer arrives on each stage without loading it (stale tiles).
+_NO_TMA = [(_GEMM, "hopper::mbar_expect_tx(&full[stage], S::kStageBytes);",
+            "hopper::mbar_arrive(&full[stage]);"),
+           (_GEMM, "hopper::tma_load_2d(a_tile(stage)",
+            "if (0) hopper::tma_load_2d(a_tile(stage)"),
+           (_GEMM, "hopper::tma_load_2d(b_tile(stage)",
+            "if (0) hopper::tma_load_2d(b_tile(stage)")]
+# The ping-pong consumers issue no products (the staged values are
+# act(bias)).
+_PP_NO_MMA = (_GEMM, "hopper::wgmma_ss<128>(acc[",
+              "if (0) hopper::wgmma_ss<128>(acc[")
 # The flash kernel: its exponent, one score's exponent, and its two
 # products' wgmma calls.
 _FLASH_P = "const float p = flash_exp(sc[4 * n + e], m[e >> 1]);"
@@ -275,23 +299,25 @@ VARIANTS = {
     "ln_matmul": {
         "full": [],
         "no_ln": [_NO_LN],
-        "no_ln_no_epilogue": [_NO_LN, _NO_EPILOGUE],
+        "no_ln_no_epilogue": [_NO_LN, *_NO_EPILOGUE],
+        "pingpong": [("static constexpr bool kPingPong = false;",
+                      "static constexpr bool kPingPong = true;\n  "
+                      "static __device__ __forceinline__ uint32_t act("
+                      "uint32_t y) { return y; }")],
     },
     "ln_mlp_residual": {
         "full": [],
-        "no_gelu": [("o[i] = pnp::pack_bf16x2(gelu_bf16(f.x), "
-                     "gelu_bf16(f.y));", "o[i] = y[i];")],
-        "no_epilogue": [_NO_EPILOGUE],
+        "no_gelu": [("return gelu_bf16x2(y);", "return y;")],
+        "no_epilogue": _NO_EPILOGUE,
         "fc2_rows4": [("static constexpr int kRows = 2;\n  static __device__ "
                        "__forceinline__ uint4 load(\n      const",
                        "static constexpr int kRows = 4;\n  static __device__ "
                        "__forceinline__ uint4 load(\n      const")],
-        "no_tma": [(_GEMM, "hopper::mbar_expect_tx(&full[stage], "
-                    "kStageBytes);", "hopper::mbar_arrive(&full[stage]);"),
-                   (_GEMM, "hopper::tma_load_2d(a_tile(stage)",
-                    "if (0) hopper::tma_load_2d(a_tile(stage)"),
-                   (_GEMM, "hopper::tma_load_2d(b_tile(stage)",
-                    "if (0) hopper::tma_load_2d(b_tile(stage)")],
+        "no_tma": _NO_TMA,
+        "fc1_cooperative": [("static constexpr bool kPingPong = true;",
+                             "static constexpr bool kPingPong = false;")],
+        "pp_no_mma": [_PP_NO_MMA],
+        "pp_no_mma_no_tma": [_PP_NO_MMA, *_NO_TMA],
     },
     "flash_qkv_proj": {
         "full": [],
@@ -409,6 +435,30 @@ VARIANTS = {
 }
 
 
+def kernel_split(call, iters: int) -> dict:
+    """Device ms a launch of each kernel that ``call`` launches once, by
+    the profiler over ``iters`` calls."""
+    import torch
+
+    from port_bench import devtrace
+
+    call()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            key = devtrace.short_name(e.name)
+            split[key] = (split.get(key, 0.0)
+                          + e.device_time_total / 1e3 / iters)
+    return split
+
+
 def build(out_dir: str, sources, only=None):
     """Compile every variant of ``sources`` (or those named in ``only``) in
     parallel, each in its own directory beside its edited headers (a
@@ -499,18 +549,21 @@ def main() -> int:
         return (torch.randn(shape, generator=gen, device=dev) * scale) \
             .to(torch.bfloat16)
 
-    x = randn(m, d)
+    # K1 and K3 at the 336 px and the 768 px main path's rows (35 x 442,
+    # 12 x 2305): each call reads the first M rows of the same arrays.
+    rows = (m, 12 * 2305)
+    x = randn(rows[-1], d)
     g = torch.ones(d, device=dev)
     b = torch.zeros(d, device=dev)
     w, bias = randn(n, d, scale=d**-0.5), randn(n, scale=0.02)
     w1, b1 = randn(f, d, scale=d**-0.5), randn(f, scale=0.02)
     w2, b2 = randn(d, f, scale=f**-0.5), randn(d, scale=0.02)
-    y = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+    y = torch.empty((rows[-1], n), dtype=torch.bfloat16, device=dev)
     z = torch.empty_like(x)
     # K1's and K3's LayerNorm scratch, holding the normalised rows for the
     # variants that run K1's GEMM alone.
     xn = vit_block.layer_norm_f32(x, g, b, 1e-6).to(torch.bfloat16)
-    hidden = torch.empty((m, f), dtype=torch.bfloat16, device=dev)
+    hidden = torch.empty((rows[-1], f), dtype=torch.bfloat16, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     Ll = ctypes.c_longlong
@@ -702,28 +755,43 @@ def main() -> int:
                   f"{(att + proj) / ms / 1e9:.1f} TFLOP/s of the full "
                   "kernel's work)", flush=True)
             continue
+        # K1 and K3 at both row counts: the whole call by CUDA events, then
+        # each of its kernels by the profiler, each GEMM beside its
+        # products' bound.
         if src == "ln_matmul":
             fn = lib.ln_matmul_bf16
             fn.argtypes = [P] * 7 + [I] * 3 + [Fl, P]
-            call = (lambda fn=fn: fn(
+            calls = {mm: (lambda fn=fn, mm=mm: fn(
                 x.data_ptr(), g.data_ptr(), b.data_ptr(), w.data_ptr(),
-                bias.data_ptr(), xn.data_ptr(), y.data_ptr(), m, d, n, 1e-6,
-                stream))
-            flops = 2.0 * m * d * n
+                bias.data_ptr(), xn.data_ptr(), y.data_ptr(), mm, d, n, 1e-6,
+                stream)) for mm in rows}
+            gemms = {"k1::Bias": n}
         else:
             fn = lib.ln_mlp_residual_bf16
             fn.argtypes = [P] * 10 + [I] * 3 + [Fl, P]
-            call = (lambda fn=fn: fn(
+            calls = {mm: (lambda fn=fn, mm=mm: fn(
                 x.data_ptr(), g.data_ptr(), b.data_ptr(), w1.data_ptr(),
                 b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), xn.data_ptr(),
-                hidden.data_ptr(), z.data_ptr(), m, d, f, 1e-6, stream))
-            flops = 4.0 * m * d * f
-        if call() != 0:
-            raise SystemExit(f"{src} {name}: launch failed")
-        ms = chip_smoke.time_ms(call, 10)
-        print(f"{src} {name}: {ms:.4f} ms ({flops / ms / 1e9:.1f} "
-              "TFLOP/s of the full kernel's work)", flush=True)
-    h = vit_block.layer_norm_f32(x, g, b, 1e-6).to(torch.bfloat16)
+                hidden.data_ptr(), z.data_ptr(), mm, d, f, 1e-6, stream))
+                for mm in rows}
+            gemms = {"k3::Fc1Gelu": f, "k3::Fc2Residual": f}
+        for mm, call in calls.items():
+            if call() != 0:
+                raise SystemExit(f"{src} {name}: launch failed")
+            ms = chip_smoke.time_ms(call, 10)
+            flops = 2.0 * mm * d * sum(gemms.values())
+            parts = []
+            for kernel, kms in kernel_split(call, 10).items():
+                epi = kernel.rsplit("<pnp::", 1)[-1].rstrip(">")
+                share = ""
+                if epi in gemms:
+                    bound = 2.0 * mm * d * gemms[epi] / counting.BF16_FLOPS
+                    share = f", {100 * bound * 1e3 / kms:.1f}% of its bound"
+                parts.append(f"{kernel.split('::')[-1]} {kms:.4f}{share}")
+            print(f"{src} {name} M={mm}: {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+                  "TFLOP/s of the full kernel's work); ms a launch: "
+                  f"{'; '.join(parts)}", flush=True)
+    h = vit_block.layer_norm_f32(x[:m], g, b, 1e-6).to(torch.bfloat16)
     ms = chip_smoke.time_ms(lambda: F.linear(h, w), 10)
     print(f"cuBLAS F.linear of K1's product alone: {ms:.4f} ms "
           f"({2.0 * m * d * n / ms / 1e9:.1f} TFLOP/s)", flush=True)

@@ -36,7 +36,9 @@ tiny pipeline graphed against eager); ``to_device`` and a whole
 ``submit_batch`` without one synchronisation.
 """
 
+import ctypes
 import dataclasses
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -1128,6 +1130,143 @@ def test_ln_mlp_residual_kernel_matches_plain(cuda, m, d, f):
     assert _build.LAUNCHES["ln_mlp_residual"] == before + 1
     ref = vit_block.ln_mlp_residual_plain(x, g, b, w1, b1, w2, b2, eps=1e-6)
     torch.testing.assert_close(out.float(), ref.float(), **BF16_TOL)
+
+
+@pytest.fixture(scope="module")
+def k3_cooperative_fc1(tmp_path_factory):
+    """K3's C entry rebuilt with fc1 on the cooperative schedule (its gelu
+    in the epilogue warps), as ``scripts/kernel_ablation.py``'s
+    ``fc1_cooperative`` builds it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    src = (_build.CSRC / "ln_mlp_residual.cu").read_text()
+    flag = "static constexpr bool kPingPong = true;"
+    assert src.count(flag) == 1
+    out = tmp_path_factory.mktemp("k3_cooperative_fc1")
+    cu, so = out / "ln_mlp_residual.cu", out / "ln_mlp_residual.so"
+    cu.write_text(src.replace(flag, flag.replace("true", "false")))
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I",
+                    str(_build.CSRC), "-o", str(so), str(cu)],
+                   check=True, capture_output=True)
+    fn = ctypes.CDLL(str(so)).ln_mlp_residual_bf16
+    fn.argtypes = _build.SOURCES["ln_mlp_residual"]["ln_mlp_residual_bf16"]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@pytest.mark.parametrize("m,f", [(1, 4096), (110, 4096), (15470, 4096),
+                                 (27660, 4096), (300, 4000)])
+def test_k3_fc1_ping_pong_equals_cooperative(cuda, k3_cooperative_fc1, m,
+                                             f):
+    """fc1 on the ping-pong schedule (bias and gelu in the consumers'
+    registers) gives the gelu hidden and K3's output bit for bit as on the
+    cooperative schedule: at ViT-L's D = 1024, one row, 110 rows, both
+    main paths' M (tails of the 128-row tile but at 27660) and F = 4000
+    (the last 128-column tile of fc1 and 64-deep k-step of fc2 partly past
+    F)."""
+    d = 1024
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    x = _randn(gen, m, d).to(torch.bfloat16)
+    g, b = _norm_params(gen, d)
+    w1 = (_randn(gen, f, d) / d**0.5).to(torch.bfloat16)
+    b1 = (0.1 * _randn(gen, f)).to(torch.bfloat16)
+    w2 = (_randn(gen, d, f) / f**0.5).to(torch.bfloat16)
+    b2 = (0.1 * _randn(gen, d)).to(torch.bfloat16)
+    stream = torch.cuda.current_stream().cuda_stream
+    runs = []
+    for fn in (_build.library("ln_mlp_residual").ln_mlp_residual_bf16,
+               k3_cooperative_fc1):
+        xn, out = torch.empty_like(x), torch.empty_like(x)
+        hidden = torch.empty((m, f), dtype=torch.bfloat16, device=cuda)
+        assert fn(x.data_ptr(), g.data_ptr(), b.data_ptr(), w1.data_ptr(),
+                  b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), xn.data_ptr(),
+                  hidden.data_ptr(), out.data_ptr(), m, d, f, 1e-6,
+                  stream) == 0
+        runs.append((hidden, out))
+    torch.cuda.synchronize()
+    (hidden, out), (hidden_c, out_c) = runs
+    assert torch.equal(hidden, hidden_c)
+    assert torch.equal(out, out_c)
+
+
+def test_k3_fc1_gelu_every_code(cuda, k3_cooperative_fc1):
+    """With W1 = 0 fc1's staged value is b1 itself, so a b1 of every
+    finite bf16 code makes the gelu hidden gelu(code) for all of them:
+    the ping-pong schedule's (pairs in the consumers' registers) equal bit
+    for bit to the cooperative schedule's and to the plain gelu's."""
+    codes = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16)
+    codes = codes.view(torch.bfloat16)
+    codes = codes[torch.isfinite(codes)].to(cuda)
+    m, d, f = 2, 64, codes.numel()
+    assert f % 128 == 0
+    gen = torch.Generator(device=cuda).manual_seed(24)
+    x = _randn(gen, m, d).to(torch.bfloat16)
+    g, b = _norm_params(gen, d)
+    w1 = torch.zeros((f, d), dtype=torch.bfloat16, device=cuda)
+    w2 = (_randn(gen, d, f) / f**0.5).to(torch.bfloat16)
+    b2 = torch.zeros(d, dtype=torch.bfloat16, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    hidden = []
+    for fn in (_build.library("ln_mlp_residual").ln_mlp_residual_bf16,
+               k3_cooperative_fc1):
+        xn, out = torch.empty_like(x), torch.empty_like(x)
+        h = torch.empty((m, f), dtype=torch.bfloat16, device=cuda)
+        assert fn(x.data_ptr(), g.data_ptr(), b.data_ptr(), w1.data_ptr(),
+                  codes.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                  xn.data_ptr(), h.data_ptr(), out.data_ptr(), m, d, f,
+                  1e-6, stream) == 0
+        hidden.append(h)
+    torch.cuda.synchronize()
+    assert torch.equal(hidden[0], hidden[1])
+    assert torch.equal(hidden[0][0], vit_block.gelu_exact(codes))
+
+
+def test_gemm_epilogues_keep_their_schedules(cuda, tmp_path):
+    """Only K3's fc1 (gelu) takes the ping-pong schedule's 128 x 128
+    tiles; K1's bias, K3's fc2 + residual and K4's projection keep the
+    cooperative schedule's 128 x 256. At 128 rows and N = 512 the GEMM
+    launches one block a tile: 4 on the ping-pong schedule, 2 on the
+    cooperative one (the grids in the profiler's trace). The calls run
+    in a child process, so that its profiler session cannot touch
+    another test's."""
+    trace = tmp_path / "trace.json"
+    code = (
+        "import torch\n"
+        "from pnp_ovss_tpu_torch.ops import flash_attention, vit_block\n"
+        "g = torch.Generator(device='cuda').manual_seed(23)\n"
+        "def randn(*shape):\n"
+        "    return torch.randn(shape, generator=g, device='cuda')\n"
+        "def lin(n_out, n_in):\n"
+        "    return ((randn(n_out, n_in) / n_in**0.5).bfloat16(),\n"
+        "            (0.1 * randn(n_out)).bfloat16())\n"
+        "m, d = 128, 512\n"
+        "x = randn(m, d).bfloat16()\n"
+        "gamma, beta = 1 + 0.1 * randn(d), 0.1 * randn(d)\n"
+        "w, bias = lin(512, d)\n"
+        "w1, b1 = lin(512, d)\n"
+        "w2, b2 = lin(d, 512)\n"
+        "qkv = randn(1, m, 3 * 256).bfloat16()\n"
+        "pw, pb = lin(d, 256)\n"
+        "acts = [torch.profiler.ProfilerActivity.CUDA]\n"
+        "with torch.profiler.profile(activities=acts) as prof:\n"
+        "    vit_block.ln_matmul(x, gamma, beta, w, bias)\n"
+        "    vit_block.ln_mlp_residual(x, gamma, beta, w1, b1, w2, b2)\n"
+        "    flash_attention.flash_mha_qkv_proj(qkv, x[None], pw, pb,"
+        " num_heads=4)\n"
+        "    torch.cuda.synchronize()\n"
+        f"prof.export_chrome_trace({str(trace)!r})\n")
+    root = Path(__file__).resolve().parent.parent
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600, cwd=root)
+    assert res.returncode == 0, res.stdout + res.stderr
+    grids = {ev["name"].split("gemm_kernel<")[1].split(">")[0]:
+             ev["args"]["grid"]
+             for ev in json.loads(trace.read_text())["traceEvents"]
+             if ev.get("cat") == "kernel" and "gemm_kernel<" in ev["name"]}
+    assert grids == {"pnp::k1::Bias": [2, 1, 1],
+                     "pnp::k3::Fc1Gelu": [4, 1, 1],
+                     "pnp::k3::Fc2Residual": [2, 1, 1],
+                     "pnp::k4::ProjResidual": [2, 1, 1]}
 
 
 @pytest.mark.parametrize("m", [1, 127, 15470])
